@@ -1,0 +1,141 @@
+"""Retrieval configuration: the static/dynamic split.
+
+* ``StaticConfig``: the shape-bearing knobs (variant, γ/γ₀, budgets, k_max).
+  They size every intermediate of the traversal. The JAX package's
+  ``doc_layout`` is not here: the port scores the forward layout only.
+* ``DynamicParams``: the per-request point (k ≤ k_max, μ, η, β). It rides the
+  batch as per-row [Q] tensors (``DynamicArgs``), so rows of one batch may mix
+  points, with the same results as a batch at one point.
+
+A copy of the JAX package's ``core/config.py`` (the port imports nothing from
+it). All dataclasses validate at construction and raise ``ConfigError``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple, Sequence, Union
+
+import torch
+
+VARIANTS = ("lsp0", "lsp1", "lsp2", "sp", "bmp", "exact")
+
+
+class ConfigError(ValueError):
+    """A retrieval config field is out of its domain (raised at construction)."""
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ConfigError(msg)
+
+
+@dataclass(frozen=True)
+class DynamicParams:
+    """Per-request query-time parameters, never shape-bearing."""
+
+    k: int = 10  # results returned; must be <= StaticConfig.k_max
+    mu: float = 0.5  # threshold overestimation for max bounds (LSP/1, LSP/2, SP)
+    eta: float = 1.0  # block-level overestimation / SP avg-bound factor
+    beta: float = 0.33  # query pruning: keep the top β fraction of query terms (bounds only)
+
+    def __post_init__(self) -> None:
+        _require(
+            int(self.k) == self.k and self.k >= 1,
+            f"k must be a positive integer, got {self.k!r} — it is the number of results returned",
+        )
+        _require(
+            0.0 < self.beta <= 1.0,
+            f"beta (query-pruning fraction) must be in (0, 1], got {self.beta!r}; "
+            "beta=1.0 disables query pruning",
+        )
+        _require(self.mu > 0.0, f"mu (max-bound overestimation divisor) must be > 0, got {self.mu!r}")
+        _require(self.eta > 0.0, f"eta (block-bound overestimation divisor) must be > 0, got {self.eta!r}")
+
+    def validate_for(self, static: "StaticConfig") -> "DynamicParams":
+        """Check that a traversal sized by ``static`` can serve this point."""
+        _require(
+            self.k <= static.k_max,
+            f"k={self.k} exceeds the static k_max={static.k_max}; raise StaticConfig.k_max or lower k",
+        )
+        return self
+
+    @classmethod
+    def recommended(cls, k: int) -> "DynamicParams":
+        """The paper's zero-shot preset, dynamic half: β = 0.33 up to k = 100, else 0.5."""
+        return cls(k=k, beta=0.33 if k <= 100 else 0.5)
+
+
+class DynamicArgs(NamedTuple):
+    """``DynamicParams`` as per-row [Q] tensors on the batch's device."""
+
+    k: torch.Tensor  # int32 [Q]
+    mu: torch.Tensor  # float32 [Q]
+    eta: torch.Tensor  # float32 [Q]
+    beta: torch.Tensor  # float32 [Q]
+
+
+Dynamic = Union[DynamicParams, DynamicArgs, Sequence[DynamicParams], None]
+
+
+def dynamic_args(dyn: Dynamic, q: int, k_max: int, device) -> DynamicArgs:
+    """Broadcast host params (or a list of per-row params) to [Q] tensors.
+
+    ``None`` means the static point: k = k_max with default μ/η/β.
+    """
+    if isinstance(dyn, DynamicArgs):
+        return dyn
+    if dyn is None:
+        dyn = DynamicParams(k=k_max)
+    if isinstance(dyn, DynamicParams):
+        dyn = [dyn] * q
+    if len(dyn) != q:
+        raise ValueError(f"per-row params: got {len(dyn)} for a batch of {q} rows")
+
+    def col(field, dtype):
+        return torch.tensor([getattr(d, field) for d in dyn], dtype=dtype, device=device)
+
+    return DynamicArgs(
+        col("k", torch.int32), col("mu", torch.float32), col("eta", torch.float32), col("beta", torch.float32)
+    )
+
+
+@dataclass(frozen=True)
+class StaticConfig:
+    """Shape-bearing knobs: each value sizes an intermediate or picks a code path."""
+
+    variant: str = "lsp0"  # lsp0 | lsp1 | lsp2 | sp | bmp | exact
+    gamma: int = 250  # guaranteed top-γ superblocks — sizes the candidate list
+    gamma0: int = 32  # round-0 superblocks scored to seed θ
+    k_max: int = 10  # widest k; result tensors are [Q, k_max]
+    sb_budget: int = 0  # cap on visited superblocks; 0 -> gamma (lsp0/bmp) / 2*gamma
+    block_budget: int = 0  # cap on scored blocks; 0 -> visited_superblocks * c
+
+    def __post_init__(self) -> None:
+        _require(self.variant in VARIANTS, f"unknown variant {self.variant!r}; expected one of {VARIANTS}")
+        _require(self.gamma >= 1, f"gamma must be >= 1, got {self.gamma!r}")
+        _require(self.k_max >= 1, f"k_max must be >= 1, got {self.k_max!r}")
+        _require(self.sb_budget >= 0, f"sb_budget must be >= 0 (0 = variant default), got {self.sb_budget!r}")
+        _require(self.block_budget >= 0, f"block_budget must be >= 0 (0 = no cap), got {self.block_budget!r}")
+        budget = self.resolved_sb_budget()
+        _require(
+            1 <= self.gamma0 <= budget,
+            f"gamma0={self.gamma0} must be in [1, resolved sb_budget={budget}] "
+            f"(variant={self.variant!r}, gamma={self.gamma}, sb_budget={self.sb_budget}): "
+            "round 0 cannot score more superblocks than the traversal may visit — "
+            "lower gamma0 or raise gamma/sb_budget",
+        )
+
+    def resolved_sb_budget(self) -> int:
+        if self.sb_budget:
+            return self.sb_budget
+        return self.gamma if self.variant in ("lsp0", "bmp") else 2 * self.gamma
+
+
+def recommended_static(k: int, n_superblocks: int = 0, variant: str = "lsp0") -> StaticConfig:
+    """Static half of the paper's zero-shot preset (γ = 250 / 500 / 1000 for
+    k ≤ 10 / ≤ 100 / above, γ₀ = 32), with γ clamped to the corpus's superblocks."""
+    gamma = 250 if k <= 10 else 500 if k <= 100 else 1000
+    if n_superblocks:
+        gamma = max(1, min(gamma, n_superblocks))
+    return StaticConfig(variant=variant, gamma=gamma, gamma0=min(32, gamma), k_max=k)

@@ -1,0 +1,62 @@
+"""Dispatch layer between the traversal and the kernels.
+
+Each op has one wrapper (``kernels/*/ops.py``: scales, id clamps) and two raw
+functions it can run, the CUDA kernel and its plain PyTorch version. The raw
+function is chosen here, once per call, from ``impl`` and the operand's device:
+  "auto"    the CUDA kernel for CUDA tensors, the plain version for CPU tensors
+  "ref"     the plain version, on any device
+  "kernel"  the CUDA kernel; raises for CPU tensors
+There is no fallback: a kernel that fails to build or launch raises.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch.index.layout import PackedBounds
+from repro_torch.kernels.boundsum_gather.kernel import boundsum_gather_kernel
+from repro_torch.kernels.boundsum_gather.ops import boundsum_gather_op
+from repro_torch.kernels.boundsum_gather.ref import boundsum_gather_ref
+from repro_torch.kernels.doc_score.kernel import doc_score_fwd_kernel
+from repro_torch.kernels.doc_score.ops import doc_score_fwd_op
+from repro_torch.kernels.doc_score.ref import doc_score_fwd_ref
+from repro_torch.kernels.sbmax.kernel import sbmax_kernel
+from repro_torch.kernels.sbmax.ops import sbmax_op
+from repro_torch.kernels.sbmax.ref import sbmax_ref
+
+IMPLS = ("auto", "ref", "kernel")
+
+
+def _raw(impl: str, t: torch.Tensor, kernel: Callable, plain: Callable) -> Callable:
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if impl == "ref":
+        return plain
+    if t.is_cuda:
+        return kernel
+    if impl == "kernel":
+        raise ValueError("impl='kernel' runs the CUDA kernels and needs CUDA tensors; "
+                         "use impl='auto' or 'ref' on the CPU")
+    return plain
+
+
+def sbmax(pb: PackedBounds, tids: torch.Tensor, ws: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+    """BoundSum / SBMax (paper Eq. 1): [Q, pb.n] = sum_i ws[:, i] * W[tids[:, i], :]."""
+    return sbmax_op(pb, tids, ws, _raw(impl, pb.packed, sbmax_kernel, sbmax_ref))
+
+
+def gathered_block_bounds(pb: PackedBounds, c: int, tids: torch.Tensor, ws: torch.Tensor,
+                          sel_sb: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+    """Block BoundSum restricted to the selected superblocks' blocks: [Q, S, c]."""
+    raw = _raw(impl, pb.packed, boundsum_gather_kernel, boundsum_gather_ref)
+    return boundsum_gather_op(pb, c, tids, ws, sel_sb, raw)
+
+
+def score_gather(index, qdense: torch.Tensor, blk_ids: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+    """Per-document scores of the selected blocks: [Q, S] block ids -> [Q, S, b],
+    with the per-block dequant scales applied. Padded or ineligible blocks are
+    not masked here (``scoring.score_blocks`` does that)."""
+    fwdq = index.docs_fwdq
+    return doc_score_fwd_op(fwdq, qdense, blk_ids, _raw(impl, fwdq.tids, doc_score_fwd_kernel, doc_score_fwd_ref))

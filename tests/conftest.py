@@ -8,6 +8,10 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line("markers", "cuda: needs a CUDA device; skipped where there is none")
+
+
 @pytest.fixture(scope="session")
 def tiny_corpus():
     from repro.data.synthetic import CorpusConfig, make_corpus, make_queries
