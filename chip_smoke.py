@@ -8,18 +8,24 @@ prints the card's name and power limit; holds each kernel against its plain
 PyTorch version at a small shape; generates a 1,048,576-document synthetic
 corpus (vocab 30,522) and builds its index on the card with
 ``Retriever.build``; answers 256 requests in four ``search_batch`` calls of
-64 and checks that every kernel was launched; runs the same requests through
-``impl="ref"`` and the ``exact`` backend; holds each kernel against its plain
-version again at the shapes the search gave it and times both with CUDA
-events (median of 20, L2 flushed); times ``search_batch`` and profiles one
-call (device kernels, device idle share). The second-to-last
-line is a JSON object of per-kernel numbers, the last ``{"ok": true, ...}``.
+64 and checks that every kernel of that path was launched; runs the same
+requests through ``impl="ref"`` and the ``exact`` backend; answers them again
+under ``doc_layout="flat"`` (kernel path, ``impl="ref"``); builds a dense
+index of 1,000,000 synthetic 64-dim candidate embeddings on the card and
+answers 256 query rows with ``retrieve_dense`` (kernel path, ``impl="ref"``,
+exhaustive); holds each kernel against its plain version again at the shapes
+its path gave it and times both with CUDA events (median of 20, L2 flushed);
+times ``search_batch`` and profiles one call of each path (device kernels,
+device idle share). Each path's launch counts are set to 0 just before it runs and read
+just after. The second-to-last line is a JSON object of per-kernel numbers,
+the last ``{"ok": true, ...}``.
 Any failed check raises and exits non-zero; without a CUDA device it exits 1
 before printing any result. It imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -33,10 +39,26 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 N_DOCS, VOCAB, N_TOPICS = 1_048_576, 30_522, 1024
 N_QUERIES, BATCH = 256, 64
 K = 10
+# dense phase: MIND's 64-dim embeddings, the recsys retrieval_cand cell's 1M
+# candidates, 64 users x MIND's 4 interests; clustered like
+# benchmarks/dense_retrieval.py (64 Gaussian centres, noise 0.25 / 0.2)
+N_CANDS, DIM, N_CENTRES, N_INTEREST_ROWS = 1_000_000, 64, 64, 256
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 TOL = dict(rtol=1e-5, atol=1e-4)  # float32 sums in another order than the plain version
 REPS = 20
+# name -> (core.ops attribute, CUDA source, the TPU kernel it replaces)
+KERNELS = {
+    "sbmax": ("sbmax_kernel", "src/repro_torch/csrc/sbmax.cu", "src/repro/kernels/sbmax/kernel.py:51"),
+    "boundsum_gather": ("boundsum_gather_kernel", "src/repro_torch/csrc/boundsum_gather.cu",
+                        "src/repro/kernels/boundsum_gather/kernel.py:45"),
+    "doc_score_fwd": ("doc_score_fwd_kernel", "src/repro_torch/csrc/doc_score.cu",
+                      "src/repro/kernels/doc_score/kernel.py:40"),
+    "doc_score_flat": ("doc_score_flat_kernel", "src/repro_torch/csrc/doc_score_flat.cu",
+                       "src/repro/kernels/doc_score/kernel.py:84"),
+    "dequant_matmul": ("dequant_matmul_kernel", "src/repro_torch/csrc/dequant_matmul.cu",
+                       "src/repro/kernels/dequant_matmul/kernel.py:46"),
+}
 
 
 def check(cond, msg):
@@ -111,6 +133,23 @@ def doc_score_work(tids3, ws3, qdense, blk):
     return nbytes, 2.0 * postings
 
 
+def doc_score_flat_work(tids, ws, doc_ends, qdense, blk):
+    import torch
+
+    blocks = torch.unique(blk).long()
+    live = int(doc_ends[blocks, -1].sum())  # postings before each distinct block's padding
+    b = doc_ends.shape[1]
+    nbytes = (live * (4 + ws.element_size()) + blocks.numel() * b * 4 + _nbytes(qdense, blk)
+              + blk.numel() * b * 4)
+    return nbytes, 2.0 * int(doc_ends[blk.long(), -1].sum())
+
+
+def dequant_matmul_work(x, packed, bits):
+    m, k = x.shape
+    n = packed.shape[1] * (32 // bits)
+    return _nbytes(x, packed) + m * n * 4, 2.0 * m * k * n
+
+
 def small_kernel_checks(device):
     """Each kernel against its plain version at one small shape."""
     import torch
@@ -118,8 +157,10 @@ def small_kernel_checks(device):
     from repro_torch.index.pack import pack_rows_strided
     from repro_torch.kernels.boundsum_gather.kernel import boundsum_gather_kernel
     from repro_torch.kernels.boundsum_gather.ref import boundsum_gather_ref
-    from repro_torch.kernels.doc_score.kernel import doc_score_fwd_kernel
-    from repro_torch.kernels.doc_score.ref import doc_score_fwd_ref
+    from repro_torch.kernels.dequant_matmul.kernel import dequant_matmul_kernel
+    from repro_torch.kernels.dequant_matmul.ref import dequant_matmul_ref
+    from repro_torch.kernels.doc_score.kernel import doc_score_flat_kernel, doc_score_fwd_kernel
+    from repro_torch.kernels.doc_score.ref import doc_score_flat_ref, doc_score_fwd_ref
     from repro_torch.kernels.sbmax.kernel import sbmax_kernel
     from repro_torch.kernels.sbmax.ref import sbmax_ref
 
@@ -157,23 +198,42 @@ def small_kernel_checks(device):
     p_out = doc_score_fwd_ref(tids3, ws3, qdense, blk)
     torch.testing.assert_close(k_out, p_out, **TOL)
     errs["doc_score_fwd"] = float((k_out - p_out).abs().max())
+    for wdtype in (torch.uint8, torch.uint16):
+        counts = torch.randint(0, 9, (17, 4), generator=g)
+        doc_ends = torch.cumsum(counts, dim=1).to(device, torch.int32)  # runs of 0-8 postings
+        live = torch.arange(40)[None, :] < doc_ends[:, -1:].cpu()
+        tids = torch.where(live, torch.randint(0, vocab, (17, 40), generator=g), vocab).to(device, torch.int32)
+        ws = torch.where(live, torch.randint(0, 1 << (8 * wdtype.itemsize), (17, 40), generator=g), 0)
+        args = (tids, ws.to(torch.int32).to(device).to(wdtype), doc_ends, qdense, blk)
+        k_out = doc_score_flat_kernel(*args)
+        p_out = doc_score_flat_ref(*args)
+        torch.testing.assert_close(k_out, p_out, **TOL)
+        errs[f"doc_score_flat weights={wdtype}"] = float((k_out - p_out).abs().max())
+    for bits, dtype, m in ((4, torch.float32, 64), (8, torch.float32, 100), (4, torch.bfloat16, 3)):
+        x = torch.randn((m, 300), generator=g).to(device, dtype)
+        packed = pack_rows_strided(ints(1 << bits, (300, 32 // bits * 256), torch.uint8), bits, 128)
+        k_out = dequant_matmul_kernel(x, packed, bits)
+        p_out = dequant_matmul_ref(x, packed, bits)
+        torch.testing.assert_close(k_out, p_out, rtol=1e-5, atol=1e-2)  # sums of 300 terms ~1e2
+        errs[f"dequant_matmul bits={bits} x={dtype} M={m}"] = float((k_out - p_out).abs().max())
     return errs
 
 
-def profile_search_batch(retr, batch):
-    """Where one search_batch's time goes: device kernels by name (CUPTI,
-    through torch.profiler), their count, and the device's idle share of the
-    call's wall time. Prints "not measured" if the profiler sees no device time."""
+def profile_call(label, fn):
+    """Where one call's time goes: device kernels by name (CUPTI, through
+    torch.profiler), their count, and the device's idle share of the call's
+    wall time. ``fn`` must end in a device-to-host copy. Prints "not
+    measured" if the profiler sees no device time."""
     from collections import Counter
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    retr.search_batch(batch)
+    fn()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        retr.search_batch(batch)
+        fn()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
@@ -183,7 +243,7 @@ def profile_search_batch(retr, batch):
     for e in kernels:
         by_name[e.name[:90]] += e.time_range.elapsed_us()
     busy_us = sum(by_name.values())
-    log(f"profile of one search_batch ({len(batch)} requests, profiler on): wall {wall_us / 1e3:.2f} ms, "
+    log(f"profile of one {label} (profiler on): wall {wall_us / 1e3:.2f} ms, "
         f"{len(kernels)} device kernels, device busy {busy_us / 1e3:.3f} ms, idle share "
         f"{1 - busy_us / wall_us:.3f}")
     for name, us in by_name.most_common(12):
@@ -205,6 +265,140 @@ def recording(fn, calls):
     return wrapper
 
 
+def capture(core_ops, names, run):
+    """Run ``run()`` with the kernels ``names`` (keys of KERNELS) recording the
+    arguments of each launch; returns {name: [args, ...]}."""
+    calls = {name: [] for name in names}
+    originals = {name: getattr(core_ops, KERNELS[name][0]) for name in names}
+    for name, fn in originals.items():
+        setattr(core_ops, KERNELS[name][0], recording(fn, calls[name]))
+    try:
+        run()
+    finally:
+        for name, fn in originals.items():
+            setattr(core_ops, KERNELS[name][0], fn)
+    return calls
+
+
+def counted(core_ops, run):
+    """Run ``run()`` with every kernel's launch count set to 0 just before;
+    returns (run's result, {name: launches during the run})."""
+    fns = {name: getattr(core_ops, attr) for name, (attr, _, _) in KERNELS.items()}
+    for fn in fns.values():
+        fn.launches = 0
+    out = run()
+    return out, {name: fn.launches for name, fn in fns.items()}
+
+
+def host_ms(fn):
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def flat_phase(idx, fwd_cfg, batches, responses, exact_ids, device, core_ops):
+    """The same requests under doc_layout="flat": kernel path (counted) against
+    impl="ref" on the card, against the fwd layout and against exact. Returns
+    (doc_score_flat launches, captured kernel calls)."""
+    import numpy as np
+
+    from repro_torch.api import Retriever
+    from repro_torch.eval.metrics import recall_vs_oracle
+
+    flat_cfg = dataclasses.replace(fwd_cfg, doc_layout="flat")
+    flat = Retriever.from_index(idx, flat_cfg, device=device)
+    captured = capture(core_ops, ["doc_score_flat"], lambda: flat.search_batch(batches[0]))
+    flat_resp, launches = counted(core_ops, lambda: [r for b in batches for r in flat.search_batch(b)])
+    log(f"flat layout ({flat_cfg}): launches during the 4 search_batch calls: {launches}")
+    check(launches["doc_score_flat"] > 0, "kernel doc_score_flat was never launched on the flat path")
+    ids = np.stack([r.doc_ids for r in flat_resp])
+    check(ids.shape == (N_QUERIES, K) and np.isfinite(np.stack([r.scores for r in flat_resp])).all(),
+          "flat result shape / finite scores")
+    ref = Retriever.from_index(idx, flat_cfg, impl="ref", device=device)
+    ref_resp = [r for b in batches for r in ref.search_batch(b)]
+    same_counters = all(
+        (a.n_superblocks_visited, a.n_blocks_scored) == (b.n_superblocks_visited, b.n_blocks_scored)
+        for a, b in zip(flat_resp, ref_resp)
+    )
+    rec_ref = recall_vs_oracle(ids, np.stack([r.doc_ids for r in ref_resp]))
+    rec_fwd = recall_vs_oracle(ids, np.stack([r.doc_ids for r in responses]))
+    log(f"flat kernel path vs flat impl='ref': counters equal {same_counters}, recall@10 {rec_ref:.4f}; "
+        f"flat vs fwd recall@10 {rec_fwd:.4f}; flat recall@10 vs exact {recall_vs_oracle(ids, exact_ids):.4f}")
+    check(same_counters, "flat kernel and ref paths visit the same superblocks and blocks")
+    check(rec_ref >= 0.99, f"recall@10 of the flat kernel path against the flat ref path {rec_ref} < 0.99")
+    check(rec_fwd >= 0.99, f"recall@10 of the flat layout against the fwd layout {rec_fwd} < 0.99")
+    flat_ms = [host_ms(lambda: flat.search_batch(b)) for _ in range(3) for b in batches]
+    ref_ms = [host_ms(lambda: ref.search_batch(b)) for b in batches]
+    log(f"search_batch of {BATCH}, flat layout: median {statistics.median(flat_ms):.2f} ms over {len(flat_ms)} "
+        f"calls (kernel path); impl='ref' median {statistics.median(ref_ms):.2f} ms")
+    profile_call(f"flat-layout search_batch ({BATCH} requests)", lambda: flat.search_batch(batches[0]))
+    return launches["doc_score_flat"], captured
+
+
+def dense_phase(device, core_ops):
+    """Dense-embedding LSP at the recsys retrieval_cand size: build on the
+    card, 256 query rows in four calls of 64 through the kernel path (counted),
+    against impl="ref" and the exhaustive oracle. Returns (dequant_matmul
+    launches, captured kernel calls)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.config import DynamicParams, StaticConfig, combine
+    from repro_torch.core.lsp_dense import (
+        DenseIndexConfig,
+        build_dense_index,
+        retrieve_dense,
+        retrieve_dense_exact,
+    )
+    from repro_torch.eval.metrics import recall_vs_oracle
+    from repro_torch.index.layout import index_nbytes
+
+    rng = np.random.default_rng(0)
+    centres = rng.standard_normal((N_CENTRES, DIM)).astype(np.float32)
+    cands = (centres[rng.integers(0, N_CENTRES, N_CANDS)]
+             + 0.25 * rng.standard_normal((N_CANDS, DIM))).astype(np.float32)
+    rows = (centres[rng.integers(0, N_CENTRES, N_INTEREST_ROWS)]
+            + 0.2 * rng.standard_normal((N_INTEREST_ROWS, DIM))).astype(np.float32)
+    calls = [torch.from_numpy(rows[i: i + BATCH]).to(device) for i in range(0, N_INTEREST_ROWS, BATCH)]
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    didx = build_dense_index(cands, DenseIndexConfig(b=64, c=16, bits=4, kmeans_iters=4, ns_align=8),
+                             device=device)
+    torch.cuda.synchronize(device)
+    log(f"dense index of {N_CANDS} x {DIM} built on the card in {time.perf_counter() - t0:.1f} s: "
+        f"{didx.n_blocks} blocks, {didx.n_superblocks} superblocks; index holds "
+        f"{index_nbytes(didx) / 1e9:.3f} GB on the card; build peak "
+        f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
+    cfg = combine(StaticConfig(variant="lsp0", gamma=max(8, didx.n_superblocks // 8), gamma0=4, k_max=K),
+                  DynamicParams(k=K))
+    log(f"dense config: {cfg}")
+
+    def run(impl):
+        return np.concatenate([retrieve_dense(didx, q, cfg, impl=impl)[0].cpu().numpy() for q in calls])
+
+    captured = capture(core_ops, ["dequant_matmul"], lambda: retrieve_dense(didx, calls[0], cfg))
+    ids, launches = counted(core_ops, lambda: run("auto"))
+    log(f"dense: launches during the 4 retrieve_dense calls: {launches}")
+    check(launches["dequant_matmul"] > 0, "kernel dequant_matmul was never launched on the dense path")
+    check(ids.shape == (N_INTEREST_ROWS, K) and ((ids >= 0) & (ids < N_CANDS)).all(),
+          "every dense query returns k valid candidate ids")
+    rec_ref = recall_vs_oracle(ids, run("ref"))
+    exact_ids = np.concatenate([retrieve_dense_exact(didx, q, K)[0].cpu().numpy() for q in calls])
+    log(f"dense kernel path vs impl='ref': recall@10 {rec_ref:.4f}; recall@10 vs exhaustive "
+        f"{recall_vs_oracle(ids, exact_ids):.4f}")
+    check(rec_ref >= 0.99, f"recall@10 of the dense kernel path against the ref path {rec_ref} < 0.99")
+    call_ms = [host_ms(lambda: retrieve_dense(didx, q, cfg)[0].cpu()) for _ in range(3) for q in calls]
+    ref_ms = [host_ms(lambda: retrieve_dense(didx, q, cfg, impl="ref")[0].cpu()) for q in calls]
+    exact_ms = [host_ms(lambda: retrieve_dense_exact(didx, q, K)[0].cpu()) for q in calls]
+    log(f"retrieve_dense of {BATCH} rows: median {statistics.median(call_ms):.2f} ms over {len(call_ms)} calls "
+        f"(kernel path); impl='ref' median {statistics.median(ref_ms):.2f} ms; exhaustive median "
+        f"{statistics.median(exact_ms):.2f} ms; peak device memory "
+        f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
+    profile_call(f"retrieve_dense ({BATCH} rows)", lambda: retrieve_dense(didx, calls[0], cfg)[0].cpu())
+    profile_call(f"retrieve_dense_exact ({BATCH} rows)", lambda: retrieve_dense_exact(didx, calls[0], K)[0].cpu())
+    return launches["dequant_matmul"], captured
+
+
 def main() -> int:
     import torch
 
@@ -223,9 +417,11 @@ def smoke(device) -> int:
     from repro_torch.eval.metrics import recall_vs_oracle
     from repro_torch.index.layout import index_nbytes
     from repro_torch.core import ops as core_ops
+    from repro_torch.core.bounds import unpack_strided
     from repro_torch.kernels import _build
     from repro_torch.kernels.boundsum_gather.ref import boundsum_gather_ref
-    from repro_torch.kernels.doc_score.ref import doc_score_fwd_ref
+    from repro_torch.kernels.dequant_matmul.ref import dequant_matmul_ref
+    from repro_torch.kernels.doc_score.ref import doc_score_flat_ref, doc_score_fwd_ref
     from repro_torch.kernels.sbmax.ref import sbmax_ref
 
     torch.backends.cuda.matmul.allow_tf32 = False  # k-means distances in full float32
@@ -272,28 +468,24 @@ def smoke(device) -> int:
     batches = [requests[i: i + BATCH] for i in range(0, N_QUERIES, BATCH)]
 
     # ---- one warm-up batch, recording the inputs each kernel is handed
-    captured = {"sbmax": [], "boundsum_gather": [], "doc_score_fwd": []}
-    patches = [("sbmax_kernel", "sbmax"), ("boundsum_gather_kernel", "boundsum_gather"),
-               ("doc_score_fwd_kernel", "doc_score_fwd")]
-    originals = {}
-    for attr, key in patches:
-        originals[key] = fn = getattr(core_ops, attr)
-        setattr(core_ops, attr, recording(fn, captured[key]))
-    retr.search_batch(batches[0])
-    for attr, key in patches:
-        setattr(core_ops, attr, originals[key])
+    fwd_kernels = ["sbmax", "boundsum_gather", "doc_score_fwd"]
+    captured = capture(core_ops, fwd_kernels, lambda: retr.search_batch(batches[0]))
     torch.cuda.synchronize(device)
 
     # ---- 5-6. the main path: 256 requests in four search_batch calls, counted
-    for fn in originals.values():
-        fn.launches = 0
-    responses, batch_s = [], []
-    for batch in batches:
-        t0 = time.perf_counter()
-        responses += retr.search_batch(batch)
-        batch_s.append(time.perf_counter() - t0)
-    launches = {key: fn.launches for key, fn in originals.items()}
-    log(f"launches during the 4 search_batch calls: {launches}")
+    batch_s = []
+
+    def main_path():
+        out = []
+        for batch in batches:
+            t0 = time.perf_counter()
+            out += retr.search_batch(batch)
+            batch_s.append(time.perf_counter() - t0)
+        return out
+
+    responses, counts = counted(core_ops, main_path)
+    log(f"launches during the 4 search_batch calls: {counts}")
+    launches = {key: counts[key] for key in fwd_kernels}
     for key, n in launches.items():
         check(n > 0, f"kernel {key} was never launched on the main path")
     ids = np.stack([r.doc_ids for r in responses])
@@ -324,37 +516,54 @@ def smoke(device) -> int:
     log(f"lsp0 recall@10 vs exact: {rec_exact:.4f} (exact backend {exact_s:.1f} s for {N_QUERIES}); "
         f"mean superblocks visited {visited:.1f} / {idx.n_superblocks}, blocks scored {blocks:.1f}")
 
-    # ---- 8. each kernel vs its plain version at the main path's shapes, timed
+    # ---- 7a. the same requests under the flat document layout
+    launches["doc_score_flat"], flat_captured = flat_phase(idx, retr.static_cfg, batches, responses, exact_ids,
+                                                           device, core_ops)
+    captured.update(flat_captured)
+
+    # ---- 7b. dense-embedding LSP (recsys retrieval_cand)
+    launches["dequant_matmul"], dense_captured = dense_phase(device, core_ops)
+    captured.update(dense_captured)
+
+    # ---- 8. each kernel vs its plain version at its path's shapes, timed
     flush = torch.empty(128 * 2**20, dtype=torch.float32, device=device)
-    plain = {"sbmax": sbmax_ref, "boundsum_gather": boundsum_gather_ref, "doc_score_fwd": doc_score_fwd_ref}
-    work = {"sbmax": sbmax_work, "boundsum_gather": boundsum_work, "doc_score_fwd": doc_score_work}
-    meta = {
-        "sbmax": ("src/repro_torch/csrc/sbmax.cu", "src/repro/kernels/sbmax/kernel.py:51"),
-        "boundsum_gather": ("src/repro_torch/csrc/boundsum_gather.cu",
-                            "src/repro/kernels/boundsum_gather/kernel.py:45"),
-        "doc_score_fwd": ("src/repro_torch/csrc/doc_score.cu", "src/repro/kernels/doc_score/kernel.py:40"),
-    }
+    plain = {"sbmax": sbmax_ref, "boundsum_gather": boundsum_gather_ref, "doc_score_fwd": doc_score_fwd_ref,
+             "doc_score_flat": doc_score_flat_ref, "dequant_matmul": dequant_matmul_ref}
+    work = {"sbmax": sbmax_work, "boundsum_gather": boundsum_work, "doc_score_fwd": doc_score_work,
+            "doc_score_flat": doc_score_flat_work, "dequant_matmul": dequant_matmul_work}
+
+    def library_ms(key, args):
+        """One PyTorch call computing the same function, where there is one."""
+        if key != "dequant_matmul":
+            return None
+        x, packed, bits = args
+        w = unpack_strided(packed, bits, 128).to(torch.float32)  # unpacked beforehand, not timed
+        ms = timed_ms(lambda: torch.matmul(x.to(torch.float32), w), flush)
+        log(f"  library: torch.matmul(x, W) on W unpacked to float32 beforehand (unpack excluded): {ms:.4f} ms")
+        return ms
+
     rows = []
-    for key, calls in captured.items():
+    for key, (attr, src, replaces) in KERNELS.items():
+        calls = captured[key]
         check(calls, f"no captured call of {key}")
+        kernel = getattr(core_ops, attr)
         per_call = []
         for args in calls:
-            k_out = originals[key](*args)
+            k_out = kernel(*args)
             p_out = plain[key](*args)
             torch.testing.assert_close(k_out, p_out, **TOL)
             err = float((k_out - p_out).abs().max())
-            ms = timed_ms(lambda: originals[key](*args), flush)
+            ms = timed_ms(lambda: kernel(*args), flush)
             plain_ms = timed_ms(lambda: plain[key](*args), flush)
             bound_ms, bound_by = bound(*work[key](*args))
             shape = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
             log(f"{key} at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
                 f"({bound_by}), max_abs_err {err:.3g}")
-            per_call.append((ms, err, plain_ms, bound_ms, bound_by))
-        ms, err, plain_ms, bound_ms, bound_by = max(per_call)  # the largest call of the path
-        src, replaces = meta[key]
+            per_call.append((ms, err, plain_ms, bound_ms, bound_by, library_ms(key, args)))
+        ms, err, plain_ms, bound_ms, bound_by, lib_ms = max(per_call, key=lambda p: p[0])  # the largest call
         rows.append({"name": key, "route": "cuda", "source": src, "replaces": replaces,
                      "launches": launches[key], "max_abs_err": max(p[1] for p in per_call), "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
 
     # ---- search_batch end to end (host clock; each call ends in a device->host copy)
     for _ in range(2):
@@ -369,8 +578,8 @@ def smoke(device) -> int:
         ref_s.append(time.perf_counter() - t0)
     log(f"search_batch of {BATCH}: median {statistics.median(batch_s) * 1e3:.2f} ms over {len(batch_s)} "
         f"calls (kernel path); impl='ref' median {statistics.median(ref_s) * 1e3:.2f} ms; "
-        f"peak device memory {torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
-    profile_search_batch(retr, batches[0])
+        f"peak device memory since the dense build {torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
+    profile_call(f"search_batch ({BATCH} requests)", lambda: retr.search_batch(batches[0]))
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(card)

@@ -1,8 +1,7 @@
 """Retrieval configuration: the static/dynamic split.
 
-* ``StaticConfig``: the shape-bearing knobs (variant, γ/γ₀, budgets, k_max).
-  They size every intermediate of the traversal. The JAX package's
-  ``doc_layout`` is not here: the port scores the forward layout only.
+* ``StaticConfig``: the shape-bearing knobs (variant, γ/γ₀, budgets, k_max,
+  document layout). They size every intermediate of the traversal.
 * ``DynamicParams``: the per-request point (k ≤ k_max, μ, η, β). It rides the
   batch as per-row [Q] tensors (``DynamicArgs``), so rows of one batch may mix
   points, with the same results as a batch at one point.
@@ -14,11 +13,12 @@ it). All dataclasses validate at construction and raise ``ConfigError``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple, Sequence, Union
+from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
 
 VARIANTS = ("lsp0", "lsp1", "lsp2", "sp", "bmp", "exact")
+DOC_LAYOUTS = ("fwd", "flat")
 
 
 class ConfigError(ValueError):
@@ -110,9 +110,14 @@ class StaticConfig:
     k_max: int = 10  # widest k; result tensors are [Q, k_max]
     sb_budget: int = 0  # cap on visited superblocks; 0 -> gamma (lsp0/bmp) / 2*gamma
     block_budget: int = 0  # cap on scored blocks; 0 -> visited_superblocks * c
+    doc_layout: str = "fwd"  # fwd | flat: the operand documents are scored from
 
     def __post_init__(self) -> None:
         _require(self.variant in VARIANTS, f"unknown variant {self.variant!r}; expected one of {VARIANTS}")
+        _require(
+            self.doc_layout in DOC_LAYOUTS,
+            f"unknown doc_layout {self.doc_layout!r}; expected one of {DOC_LAYOUTS}",
+        )
         _require(self.gamma >= 1, f"gamma must be >= 1, got {self.gamma!r}")
         _require(self.k_max >= 1, f"k_max must be >= 1, got {self.k_max!r}")
         _require(self.sb_budget >= 0, f"sb_budget must be >= 0 (0 = variant default), got {self.sb_budget!r}")
@@ -130,6 +135,50 @@ class StaticConfig:
         if self.sb_budget:
             return self.sb_budget
         return self.gamma if self.variant in ("lsp0", "bmp") else 2 * self.gamma
+
+
+@dataclass(frozen=True)
+class RetrievalConfig:
+    """The combined view of both halves (k == k_max); ``split()`` yields the
+    (StaticConfig, DynamicParams) pair, and construction validates both."""
+
+    variant: str = "lsp0"
+    k: int = 10
+    gamma: int = 250
+    mu: float = 0.5
+    eta: float = 1.0
+    beta: float = 0.33
+    gamma0: int = 32
+    sb_budget: int = 0
+    block_budget: int = 0
+    doc_layout: str = "fwd"
+
+    def __post_init__(self) -> None:
+        self.split()
+
+    def static(self) -> StaticConfig:
+        return StaticConfig(variant=self.variant, gamma=self.gamma, gamma0=self.gamma0, k_max=self.k,
+                            sb_budget=self.sb_budget, block_budget=self.block_budget, doc_layout=self.doc_layout)
+
+    def dynamic(self) -> DynamicParams:
+        return DynamicParams(k=self.k, mu=self.mu, eta=self.eta, beta=self.beta)
+
+    def split(self) -> tuple[StaticConfig, DynamicParams]:
+        return self.static(), self.dynamic()
+
+    def resolved_sb_budget(self) -> int:
+        return self.static().resolved_sb_budget()
+
+
+def combine(static: StaticConfig, dyn: Optional[DynamicParams] = None) -> RetrievalConfig:
+    """The combined config of serving ``dyn`` (default: k = k_max) through a
+    traversal sized by ``static``."""
+    dyn = (dyn or DynamicParams(k=static.k_max)).validate_for(static)
+    return RetrievalConfig(
+        variant=static.variant, k=dyn.k, gamma=static.gamma, mu=dyn.mu, eta=dyn.eta, beta=dyn.beta,
+        gamma0=static.gamma0, sb_budget=static.sb_budget, block_budget=static.block_budget,
+        doc_layout=static.doc_layout,
+    )
 
 
 def recommended_static(k: int, n_superblocks: int = 0, variant: str = "lsp0") -> StaticConfig:

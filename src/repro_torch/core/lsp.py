@@ -116,6 +116,7 @@ def search_retrieve(
     if variant == "exact":
         raise ValueError("variant 'exact' has no pruned traversal; use the 'exact' backend "
                          "or core.exact.retrieve_exact")
+    ops.scoring_operand(index, scfg.doc_layout)  # a missing operand fails here, not mid-search
     if variant == "bmp":
         return _retrieve_bmp(index, qb_full, scfg, d, impl)
 
@@ -134,7 +135,7 @@ def search_retrieve(
     # ---- round 0: seed θ from the guaranteed head of the list
     blk0 = _expand_superblocks(top_idx[:, :g0], c)
     ones = torch.ones_like(blk0, dtype=torch.bool)
-    scores0, pos0 = score_blocks(index, qdense, blk0, ones, impl)
+    scores0, pos0 = score_blocks(index, qdense, blk0, ones, scfg.doc_layout, impl)
     theta = _kth_threshold(scores0, d.k, scfg.k_max)  # [Q]
 
     # ---- variant eligibility over ranks [g0, budget)
@@ -177,7 +178,7 @@ def search_retrieve(
         blk_mask = bvals > NEG / 2
 
     # ---- phase 3: document scoring, then the canonical merge of both rounds
-    scores1, pos1 = score_blocks(index, qdense, blk_ids, blk_mask, impl)
+    scores1, pos1 = score_blocks(index, qdense, blk_ids, blk_mask, scfg.doc_layout, impl)
     vals, ids = _merge_rounds(index, scfg, d, scores0, pos0, scores1, pos1)
 
     # ---- accounting: distinct blocks and superblocks only (sp may re-select
@@ -209,13 +210,14 @@ def _retrieve_bmp(
     # one stable sort serves both cuts: each is a prefix of the same order
     vals, idx = stable_topk(boundsum, max(b0, budget))
     i0 = idx[:, :b0]
-    scores0, pos0 = score_blocks(index, qdense, i0, torch.ones_like(i0, dtype=torch.bool), impl)
+    ones = torch.ones_like(i0, dtype=torch.bool)
+    scores0, pos0 = score_blocks(index, qdense, i0, ones, scfg.doc_layout, impl)
     theta = _kth_threshold(scores0, d.k, scfg.k_max)
 
     vals, idx = vals[:, :budget], idx[:, :budget]
     rank = torch.arange(budget, device=idx.device)[None, :]
     eligible = (vals > theta[:, None] / d.eta[:, None]) & (rank >= b0)
-    scores1, pos1 = score_blocks(index, qdense, idx, eligible, impl)
+    scores1, pos1 = score_blocks(index, qdense, idx, eligible, scfg.doc_layout, impl)
     tvals, ids = _merge_rounds(index, scfg, d, scores0, pos0, scores1, pos1)
     return RetrievalResult(
         doc_ids=ids,
@@ -278,6 +280,7 @@ def make_search_runner(
     any per-row mix of ``DynamicParams`` through one callable."""
     vocab = index.vocab
     defaults = (defaults or DynamicParams(k=scfg.k_max)).validate_for(scfg)
+    ops.scoring_operand(index, scfg.doc_layout)
 
     def fn(tids, ws, d):
         return search_retrieve(index, QueryBatch(tids, ws, vocab), scfg, d, impl=impl)

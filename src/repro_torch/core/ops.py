@@ -15,13 +15,17 @@ from typing import Callable
 
 import torch
 
+from repro_torch.core.config import ConfigError
 from repro_torch.index.layout import PackedBounds
 from repro_torch.kernels.boundsum_gather.kernel import boundsum_gather_kernel
 from repro_torch.kernels.boundsum_gather.ops import boundsum_gather_op
 from repro_torch.kernels.boundsum_gather.ref import boundsum_gather_ref
-from repro_torch.kernels.doc_score.kernel import doc_score_fwd_kernel
-from repro_torch.kernels.doc_score.ops import doc_score_fwd_op
-from repro_torch.kernels.doc_score.ref import doc_score_fwd_ref
+from repro_torch.kernels.dequant_matmul.kernel import dequant_matmul_kernel
+from repro_torch.kernels.dequant_matmul.ops import dequant_matmul_op
+from repro_torch.kernels.dequant_matmul.ref import dequant_matmul_ref
+from repro_torch.kernels.doc_score.kernel import doc_score_flat_kernel, doc_score_fwd_kernel
+from repro_torch.kernels.doc_score.ops import doc_score_flat_op, doc_score_fwd_op
+from repro_torch.kernels.doc_score.ref import doc_score_flat_ref, doc_score_fwd_ref
 from repro_torch.kernels.sbmax.kernel import sbmax_kernel
 from repro_torch.kernels.sbmax.ops import sbmax_op
 from repro_torch.kernels.sbmax.ref import sbmax_ref
@@ -54,9 +58,33 @@ def gathered_block_bounds(pb: PackedBounds, c: int, tids: torch.Tensor, ws: torc
     return boundsum_gather_op(pb, c, tids, ws, sel_sb, raw)
 
 
-def score_gather(index, qdense: torch.Tensor, blk_ids: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+def scoring_operand(index, layout: str):
+    """The quantized operand documents are scored from under ``layout``
+    (``docs_fwdq`` or ``docs_flatq``); raises ``ConfigError`` if the index
+    was built without it (``IndexBuildConfig(build_flat_inv=False)``)."""
+    operand = index.docs_flatq if layout == "flat" else index.docs_fwdq
+    if operand is None:
+        raise ConfigError(f"doc_layout={layout!r} needs the index's quantized '{layout}' scoring operand, "
+                          "which this index was built without")
+    return operand
+
+
+def score_gather(index, qdense: torch.Tensor, blk_ids: torch.Tensor, layout: str = "fwd",
+                 impl: str = "auto") -> torch.Tensor:
     """Per-document scores of the selected blocks: [Q, S] block ids -> [Q, S, b],
-    with the per-block dequant scales applied. Padded or ineligible blocks are
-    not masked here (``scoring.score_blocks`` does that)."""
-    fwdq = index.docs_fwdq
-    return doc_score_fwd_op(fwdq, qdense, blk_ids, _raw(impl, fwdq.tids, doc_score_fwd_kernel, doc_score_fwd_ref))
+    with the per-block dequant scales applied, from the ``layout`` operand
+    ("fwd" or "flat"). Padded or ineligible blocks are not masked here
+    (``scoring.score_blocks`` does that)."""
+    operand = scoring_operand(index, layout)
+    if layout == "flat":
+        raw = _raw(impl, operand.tids, doc_score_flat_kernel, doc_score_flat_ref)
+        return doc_score_flat_op(operand, qdense, blk_ids, raw)
+    raw = _raw(impl, operand.tids, doc_score_fwd_kernel, doc_score_fwd_ref)
+    return doc_score_fwd_op(operand, qdense, blk_ids, raw)
+
+
+def dequant_matmul(x: torch.Tensor, packed_w: torch.Tensor, bits: int, n: int, scale: float = 1.0,
+                   impl: str = "auto") -> torch.Tensor:
+    """Dense-embedding bound GEMM: float32 [M, n] = (x @ dequant(packed_w))[:, :n] * scale."""
+    raw = _raw(impl, packed_w, dequant_matmul_kernel, dequant_matmul_ref)
+    return dequant_matmul_op(x, packed_w, bits, n, scale, raw)

@@ -1,4 +1,4 @@
-"""Document scoring over candidate blocks or positions (forward layout).
+"""Document scoring over candidate blocks (fwd and flat layouts) or positions.
 
 Scoring uses the FULL query, dense-scattered; the pruned query only picks
 candidates. Every block score goes through ``score_blocks`` ->
@@ -38,12 +38,14 @@ def score_blocks(
     qdense: torch.Tensor,
     blk_ids: torch.Tensor,
     blk_mask: torch.Tensor,
+    layout: str = "fwd",
     impl: str = "auto",
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Score all docs of the selected blocks: blk_ids/blk_mask [Q, S] ->
-    (scores [Q, S*b], positions [Q, S*b]). Masked blocks and padded docs score NEG."""
+    """Score all docs of the selected blocks from the ``layout`` operand:
+    blk_ids/blk_mask [Q, S] -> (scores [Q, S*b], positions [Q, S*b]). Masked
+    blocks and padded docs score NEG."""
     b = index.b
-    scores = ops.score_gather(index, qdense, blk_ids, impl)  # [Q, S, b]
+    scores = ops.score_gather(index, qdense, blk_ids, layout, impl)  # [Q, S, b]
     pos = blk_ids[:, :, None] * b + torch.arange(b, device=blk_ids.device)[None, None, :]
     valid = index.doc_remap[torch.clamp(pos, 0, index.doc_remap.shape[0] - 1)] < index.n_docs
     scores = torch.where(valid & blk_mask[:, :, None], scores, NEG)

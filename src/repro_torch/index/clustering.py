@@ -109,6 +109,17 @@ def chain_order(cent: torch.Tensor) -> torch.Tensor:
     return rank
 
 
+def cluster_order(x: torch.Tensor, k: int, iters: int, seed: int) -> torch.Tensor:
+    """k-means of the rows of ``x`` into k clusters, then the row order by
+    (cluster's rank in the centroid chain, distance to its centroid): int64 [n]."""
+    assign, cent = kmeans(x, k, iters=iters, seed=seed)
+    diff = x - cent[assign]
+    dist = (diff * diff).sum(dim=1)
+    # lexsort((dist, rank)): stable sort by the minor key, then the major
+    order = torch.argsort(dist, stable=True)
+    return order[torch.argsort(chain_order(cent)[assign][order], stable=True)]
+
+
 def block_order(
     doc_ptr: np.ndarray,
     tids: np.ndarray,
@@ -130,12 +141,7 @@ def block_order(
     if n_docs <= b:  # degenerate tiny corpus
         order = torch.arange(n_docs, device=device)
     else:
-        assign, cent = kmeans(x, k, iters=kmeans_iters, seed=seed)
-        diff = x - cent[assign]
-        dist = (diff * diff).sum(dim=1)
-        # lexsort((dist, rank)): stable sort by the minor key, then the major
-        order = torch.argsort(dist, stable=True)
-        order = order[torch.argsort(chain_order(cent)[assign][order], stable=True)]
+        order = cluster_order(x, k, kmeans_iters, seed)
     pad = (-n_docs) % (b * c)
     fill = torch.full((pad,), n_docs, dtype=order.dtype, device=device)
     return torch.cat([order, fill]).to(torch.int32)

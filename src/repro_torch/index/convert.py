@@ -4,7 +4,8 @@
 are numpy arrays (for example the JAX package's index after ``np.asarray`` of
 every leaf) and whose other fields are Python ints and floats, and returns the
 port's ``LSPIndex`` on ``device``. It reads fields by name, so the source
-package never has to be imported.
+package never has to be imported. ``from_dense_arrays`` does the same for a
+dense-embedding index (``core.lsp_dense.DenseLSPIndex``).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.lsp_dense import DenseLSPIndex, PackedMinMax
 from repro_torch.device import resolve_device
 from repro_torch.index.layout import FlatDocsQ, FlatInv, FwdDocs, FwdDocsQ, LSPIndex, PackedBounds
 
@@ -69,4 +71,34 @@ def from_arrays(src, device=None) -> LSPIndex:
             _tensor(flq.tids, device), _tensor(flq.ws, device), _tensor(flq.doc_ends, device),
             _tensor(flq.scales, device), int(flq.bits), int(flq.m),
         ),
+    )
+
+
+def _minmax(pm, device):
+    return PackedMinMax(
+        _tensor(pm.max_packed, device), _tensor(pm.min_packed, device),
+        _tensor(np.asarray(pm.scale, np.float32), device), _tensor(np.asarray(pm.zero, np.float32), device),
+        int(pm.n), int(pm.granule_words), int(pm.bits),
+    )
+
+
+def from_dense_arrays(src, device=None):
+    """The port's DenseLSPIndex holding ``src``'s leaves on ``device`` (CUDA by
+    default). ``src.cands`` is a bfloat16 array (numpy's ``ml_dtypes``
+    bfloat16); its 16-bit patterns are carried over unchanged."""
+    device = resolve_device(device)
+    cands = np.asarray(src.cands)
+    if cands.dtype.name != "bfloat16":
+        raise TypeError(f"cands must be bfloat16, got {cands.dtype}")
+    return DenseLSPIndex(
+        b=int(src.b),
+        c=int(src.c),
+        n_cands=int(src.n_cands),
+        dim=int(src.dim),
+        n_blocks=int(src.n_blocks),
+        n_superblocks=int(src.n_superblocks),
+        sb=_minmax(src.sb, device),
+        blk=_minmax(src.blk, device),
+        cands=_tensor(cands.view(np.uint16), device).view(torch.bfloat16),
+        remap=_tensor(src.remap, device),
     )

@@ -1,5 +1,7 @@
-"""CUDA fused document-scoring kernel, forward layout (``csrc/doc_score.cu``),
-bound through ctypes. Replaces ``src/repro/kernels/doc_score/kernel.py::doc_score_fwd_pallas``."""
+"""CUDA fused document-scoring kernels, bound through ctypes: the forward
+layout (``csrc/doc_score.cu``, replaces
+``src/repro/kernels/doc_score/kernel.py::doc_score_fwd_pallas``) and the flat
+layout (``csrc/doc_score_flat.cu``, replaces ``doc_score_flat_pallas``)."""
 
 from __future__ import annotations
 
@@ -9,6 +11,18 @@ from repro_torch.kernels import _build
 
 MAX_SMEM_BYTES = 232_448  # dynamic shared memory one H100 thread block may use
 BLOCKS_PER_CTA = 128  # selected blocks scored by one thread block (one qdense row copy)
+
+
+def _check_common(ws: torch.Tensor, qdense: torch.Tensor, blk_ids: torch.Tensor, dev) -> None:
+    _build.check_tensor("qdense", qdense, torch.float32, 2, dev)
+    _build.check_tensor("blk_ids", blk_ids, torch.int32, 2, dev)
+    if ws.dtype not in (torch.uint8, torch.uint16):
+        raise TypeError(f"ws must be uint8 or uint16, got {ws.dtype}")
+    if qdense.shape[0] != blk_ids.shape[0] or blk_ids.shape[0] > 65535:
+        raise ValueError(f"bad shapes: qdense {tuple(qdense.shape)}, blk_ids {tuple(blk_ids.shape)}")
+    if qdense.shape[1] * 4 > MAX_SMEM_BYTES:
+        raise ValueError(f"the dense query row ({qdense.shape[1]} floats) must fit in "
+                         f"{MAX_SMEM_BYTES} bytes of shared memory")
 
 
 def doc_score_fwd_kernel(
@@ -21,23 +35,16 @@ def doc_score_fwd_kernel(
     dev = tids3.device
     _build.check_tensor("tids3", tids3, torch.int32, 3, dev)
     _build.check_tensor("ws3", ws3, ws3.dtype, 3, dev)
-    _build.check_tensor("qdense", qdense, torch.float32, 2, dev)
-    _build.check_tensor("blk_ids", blk_ids, torch.int32, 2, dev)
-    if ws3.dtype not in (torch.uint8, torch.uint16):
-        raise TypeError(f"ws3 must be uint8 or uint16, got {ws3.dtype}")
+    _check_common(ws3, qdense, blk_ids, dev)
+    if ws3.shape != tids3.shape:
+        raise ValueError(f"bad shapes: tids3 {tuple(tids3.shape)}, ws3 {tuple(ws3.shape)}")
     _, b, t = tids3.shape
     q, s = blk_ids.shape
-    vp = qdense.shape[1]
-    if ws3.shape != tids3.shape or qdense.shape[0] != q or q > 65535:
-        raise ValueError(f"bad shapes: tids3 {tuple(tids3.shape)}, ws3 {tuple(ws3.shape)}, "
-                         f"qdense {tuple(qdense.shape)}, blk_ids {tuple(blk_ids.shape)}")
-    if vp * 4 > MAX_SMEM_BYTES:
-        raise ValueError(f"the dense query row ({vp} floats) must fit in {MAX_SMEM_BYTES} bytes of shared memory")
     out = torch.empty((q, s, b), dtype=torch.float32, device=dev)
     launch = _build.load("doc_score")
     with torch.cuda.device(dev):
         err = launch(tids3.data_ptr(), ws3.data_ptr(), qdense.data_ptr(), blk_ids.data_ptr(),
-                     out.data_ptr(), q, s, b, t, vp, ws3.element_size(), BLOCKS_PER_CTA,
+                     out.data_ptr(), q, s, b, t, qdense.shape[1], ws3.element_size(), BLOCKS_PER_CTA,
                      torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("doc_score_fwd", err)
     doc_score_fwd_kernel.launches += 1
@@ -45,3 +52,36 @@ def doc_score_fwd_kernel(
 
 
 doc_score_fwd_kernel.launches = 0
+
+
+def doc_score_flat_kernel(
+    tids: torch.Tensor,  # int32 [NB, m], postings sorted by local doc
+    ws: torch.Tensor,  # uint8 / uint16 [NB, m]
+    doc_ends: torch.Tensor,  # int32 [NB, b], end of each document's run
+    qdense: torch.Tensor,  # float32 [Q, Vp], sentinel column zero
+    blk_ids: torch.Tensor,  # int32 [Q, S], pre-clamped to [0, NB)
+) -> torch.Tensor:
+    """float32 [Q, S, b] raw (unscaled) per-document scores."""
+    dev = tids.device
+    _build.check_tensor("tids", tids, torch.int32, 2, dev)
+    _build.check_tensor("ws", ws, ws.dtype, 2, dev)
+    _build.check_tensor("doc_ends", doc_ends, torch.int32, 2, dev)
+    _check_common(ws, qdense, blk_ids, dev)
+    if ws.shape != tids.shape or doc_ends.shape[0] != tids.shape[0]:
+        raise ValueError(f"bad shapes: tids {tuple(tids.shape)}, ws {tuple(ws.shape)}, "
+                         f"doc_ends {tuple(doc_ends.shape)}")
+    m = tids.shape[1]
+    b = doc_ends.shape[1]
+    q, s = blk_ids.shape
+    out = torch.empty((q, s, b), dtype=torch.float32, device=dev)
+    launch = _build.load("doc_score_flat")
+    with torch.cuda.device(dev):
+        err = launch(tids.data_ptr(), ws.data_ptr(), doc_ends.data_ptr(), qdense.data_ptr(),
+                     blk_ids.data_ptr(), out.data_ptr(), q, s, b, m, qdense.shape[1], ws.element_size(),
+                     BLOCKS_PER_CTA, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch("doc_score_flat", err)
+    doc_score_flat_kernel.launches += 1
+    return out
+
+
+doc_score_flat_kernel.launches = 0

@@ -1,4 +1,4 @@
-"""Quantized forward operand -> scaled per-document scores of selected blocks."""
+"""Quantized document operands -> scaled per-document scores of selected blocks."""
 
 from __future__ import annotations
 
@@ -6,7 +6,11 @@ from typing import Callable
 
 import torch
 
-from repro_torch.index.layout import FwdDocsQ
+from repro_torch.index.layout import FlatDocsQ, FwdDocsQ
+
+
+def _clamp(blk_ids: torch.Tensor, n_blocks: int) -> torch.Tensor:
+    return torch.clamp(blk_ids, 0, n_blocks - 1).to(torch.int32).contiguous()
 
 
 def doc_score_fwd_op(fwdq: FwdDocsQ, qdense: torch.Tensor, blk_ids: torch.Tensor,
@@ -15,6 +19,15 @@ def doc_score_fwd_op(fwdq: FwdDocsQ, qdense: torch.Tensor, blk_ids: torch.Tensor
     dequant scales applied. Clamps block ids and runs ``raw_fn``:
     ``doc_score_fwd_kernel`` or its plain version ``doc_score_fwd_ref``
     (``core.ops`` picks one). The caller masks padded or ineligible blocks."""
-    blk_c = torch.clamp(blk_ids, 0, fwdq.tids.shape[0] - 1).to(torch.int32).contiguous()
+    blk_c = _clamp(blk_ids, fwdq.tids.shape[0])
     raw = raw_fn(fwdq.tids, fwdq.ws, qdense.to(torch.float32).contiguous(), blk_c)
     return raw * fwdq.scales[blk_c.long()][:, :, None]
+
+
+def doc_score_flat_op(flatq: FlatDocsQ, qdense: torch.Tensor, blk_ids: torch.Tensor,
+                      raw_fn: Callable) -> torch.Tensor:
+    """``doc_score_fwd_op`` over the flat operand: ``raw_fn`` is
+    ``doc_score_flat_kernel`` or its plain version ``doc_score_flat_ref``."""
+    blk_c = _clamp(blk_ids, flatq.tids.shape[0])
+    raw = raw_fn(flatq.tids, flatq.ws, flatq.doc_ends, qdense.to(torch.float32).contiguous(), blk_c)
+    return raw * flatq.scales[blk_c.long()][:, :, None]

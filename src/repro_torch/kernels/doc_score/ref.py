@@ -1,4 +1,4 @@
-"""Plain PyTorch version of the doc_score_fwd kernel (same contract, any device)."""
+"""Plain PyTorch versions of the doc_score kernels (same contracts, any device)."""
 
 from __future__ import annotations
 
@@ -22,3 +22,25 @@ def doc_score_fwd_ref(tids3: torch.Tensor, ws3: torch.Tensor, qdense: torch.Tens
     w = gather_weights(ws3, blk_ids.long())
     qv = torch.gather(qdense, 1, t.reshape(q, -1).long()).view(t.shape)
     return (qv * w).sum(dim=-1)
+
+
+def doc_score_flat_ref(tids: torch.Tensor, ws: torch.Tensor, doc_ends: torch.Tensor, qdense: torch.Tensor,
+                       blk_ids: torch.Tensor) -> torch.Tensor:
+    """float32 [Q, S, b] raw per-document scores over flat postings: tids and
+    ws [NB, m] sorted by local doc, ``doc_ends`` [NB, b] the end of each
+    document's run, ``blk_ids`` [Q, S] pre-clamped.
+
+    Each document's score is the difference of a prefix sum over its block's
+    segment at the run's two ends. The prefix sums are float64: in float32
+    their rounding error grows with the block's total rather than the
+    document's score, which on blocks that phase 3 selects (totals ~1e4)
+    exceeds rtol=1e-5, atol=1e-4 against a direct sum of the run."""
+    q, s = blk_ids.shape
+    blk = blk_ids.long()
+    t = tids[blk]  # [Q, S, m]
+    qv = torch.gather(qdense, 1, t.reshape(q, -1).long()).view(t.shape)
+    contrib = qv.to(torch.float64) * gather_weights(ws, blk).to(torch.float64)
+    cs = torch.nn.functional.pad(torch.cumsum(contrib, dim=-1), (1, 0))  # [Q, S, m+1]
+    ends = doc_ends[blk].long()  # [Q, S, b]
+    starts = torch.nn.functional.pad(ends[..., :-1], (1, 0))
+    return (cs.gather(-1, ends) - cs.gather(-1, starts)).to(torch.float32)

@@ -14,14 +14,21 @@ import torch
 
 from repro_torch.index.pack import SEG_WORDS, pack_rows_strided
 from repro_torch.kernels.boundsum_gather.ref import boundsum_gather_ref
-from repro_torch.kernels.doc_score.ref import doc_score_fwd_ref
+from repro_torch.kernels.dequant_matmul.ref import dequant_matmul_ref
+from repro_torch.kernels.doc_score.ref import doc_score_flat_ref, doc_score_fwd_ref
 from repro_torch.kernels.sbmax.ref import sbmax_ref
 
 TOL = dict(rtol=1e-5, atol=1e-4)
+# tests/test_kernels.py's dequant_matmul tolerances (sums of up to 512
+# products of order 10^2, in another order; the Pallas kernel multiplies
+# bfloat16 x in bfloat16)
+DEQUANT_TOL = {"float32": dict(rtol=1e-5, atol=1e-2), "bfloat16": dict(rtol=2e-2, atol=1e-2)}
 
 SBMAX_SHAPES = [(64, 1024, 2, 8), (300, 2048, 3, 17), (17, 3072, 1, 3)]
 BOUNDSUM_GRID = [(4, 8), (4, 16), (4, 64), (8, 4), (8, 16)]
 DOC_SCORE_SHAPES = [(32, 8, 16, 64, 2, 5), (17, 4, 24, 300, 3, 9), (8, 16, 8, 33, 1, 3)]
+DOC_SCORE_FLAT_SHAPES = [(24, 8, 40, 64, 2, 6), (9, 4, 16, 120, 3, 4)]
+DEQUANT_SHAPES = [(64, 256, 1), (128, 512, 2)]  # (M, K, 128-word segments)
 
 
 def _t(a: np.ndarray, device="cpu") -> torch.Tensor:
@@ -70,6 +77,32 @@ def _doc_score_inputs(nb, b, t, vocab, q, s, bits=8):
     return tids, ws, qdense, blk
 
 
+def _doc_score_flat_inputs(nb, b, m, vocab, q, s, bits=8):
+    """Per-block postings sorted by local doc: runs end at doc_ends, the
+    rest of each segment is padding (sentinel tid, zero weight)."""
+    rng = np.random.default_rng(nb * 7 + m)
+    counts = rng.integers(0, m // b + 1, (nb, b))
+    doc_ends = np.cumsum(counts, axis=1).astype(np.int32)
+    tids = np.full((nb, m), vocab, np.int32)
+    ws = np.zeros((nb, m), np.uint8 if bits == 8 else np.uint16)
+    for k in range(nb):
+        n = doc_ends[k, -1]
+        tids[k, :n] = rng.integers(0, vocab, n)
+        ws[k, :n] = rng.integers(0, 1 << bits, n)
+    qdense = rng.standard_normal((q, vocab + 1)).astype(np.float32)
+    qdense[:, vocab] = 0.0
+    blk = rng.integers(0, nb, (q, s)).astype(np.int32)
+    return tids, ws, doc_ends, qdense, blk
+
+
+def _dequant_inputs(bits, m, k, segs):
+    """float32 x [m, k] and a random bits-wide [k, segs*128*vpw] matrix packed at granule 128."""
+    rng = np.random.default_rng(m + k)
+    w = rng.integers(0, 1 << bits, (k, (32 // bits) * SEG_WORDS * segs)).astype(np.uint8)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    return x, _pack(w, bits, SEG_WORDS)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -114,8 +147,36 @@ def test_doc_score_fwd_cuda_matches_plain(cuda, nb, b, t, vocab, q, s, bits):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("doc_bits", [8, 16])
-def test_search_kernel_path_matches_ref_path(cuda, doc_bits):
+@pytest.mark.parametrize("bits", [8, 16])
+@pytest.mark.parametrize("nb,b,m,vocab,q,s", DOC_SCORE_FLAT_SHAPES)
+def test_doc_score_flat_cuda_matches_plain(cuda, nb, b, m, vocab, q, s, bits):
+    from repro_torch.kernels.doc_score.kernel import doc_score_flat_kernel
+
+    args = [_t(a, cuda) for a in _doc_score_flat_inputs(nb, b, m, vocab, q, s, bits)]
+    got = doc_score_flat_kernel(*args)
+    want = doc_score_flat_ref(*args)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,segs", DEQUANT_SHAPES + [(100, 64, 1), (3, 300, 2)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_dequant_matmul_cuda_matches_plain(cuda, bits, dtype, m, k, segs):
+    """Includes M that is not a multiple of the 8-row tile (or of 128) and K
+    that is not a multiple of the 256-deep shared-memory slice. Kernel and
+    plain version both sum in float32 from the same exact values, so both
+    dtypes are held at the float32 tolerance."""
+    from repro_torch.kernels.dequant_matmul.kernel import dequant_matmul_kernel
+
+    x, packed = _dequant_inputs(bits, m, k, segs)
+    x, packed = _t(x, cuda).to(getattr(torch, dtype)), _t(packed, cuda)
+    got = dequant_matmul_kernel(x, packed, bits)
+    want = dequant_matmul_ref(x, packed, bits)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **DEQUANT_TOL["float32"])
+
+
+def _search_kernel_vs_ref(cuda, doc_bits, doc_layout):
     """A small index built on the card, searched through impl="kernel" and
     impl="ref"; the exact backend returns k valid docs on every query."""
     from repro_torch.api import Retriever, SearchRequest, StaticConfig
@@ -125,7 +186,7 @@ def test_search_kernel_path_matches_ref_path(cuda, doc_bits):
     ccfg = CorpusConfig(n_docs=8192, vocab=2048, n_topics=16, seed=0)
     corpus = make_corpus(ccfg)
     requests = [SearchRequest(t, w) for t, w in make_queries(ccfg, corpus, 32)]
-    scfg = StaticConfig(gamma=16, gamma0=4)
+    scfg = StaticConfig(gamma=16, gamma0=4, doc_layout=doc_layout)
     kern = Retriever.build(corpus, scfg, build_cfg=IndexBuildConfig(b=8, c=16, kmeans_iters=2, doc_bits=doc_bits),
                            impl="kernel", device=cuda)
     ref = Retriever.from_index(kern.index, scfg, impl="ref", device=cuda)
@@ -135,3 +196,35 @@ def test_search_kernel_path_matches_ref_path(cuda, doc_bits):
         np.testing.assert_allclose(a.scores, b.scores, rtol=1e-5, atol=1e-5)
     exact = Retriever.from_index(kern.index, scfg, backend="exact", device=cuda)
     assert all((r.doc_ids >= 0).all() for r in exact.search_batch(requests))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("doc_bits", [8, 16])
+def test_search_kernel_path_matches_ref_path(cuda, doc_bits):
+    _search_kernel_vs_ref(cuda, doc_bits, "fwd")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("doc_bits", [8, 16])
+def test_flat_search_kernel_path_matches_ref_path(cuda, doc_bits):
+    _search_kernel_vs_ref(cuda, doc_bits, "flat")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["lsp0", "lsp1"])
+def test_dense_kernel_path_matches_ref_path(cuda, variant):
+    """A small dense index built on the card: retrieve_dense through the
+    dequant_matmul kernel and through its plain version return the same ids."""
+    from repro_torch.core.config import RetrievalConfig
+    from repro_torch.core.lsp_dense import DenseIndexConfig, build_dense_index, retrieve_dense
+
+    rng = np.random.default_rng(0)
+    centers = rng.standard_normal((16, 32)).astype(np.float32)
+    cands = (centers[rng.integers(0, 16, 8000)] + 0.3 * rng.standard_normal((8000, 32))).astype(np.float32)
+    q = (centers[rng.integers(0, 16, 6)] + 0.2 * rng.standard_normal((6, 32))).astype(np.float32)
+    idx = build_dense_index(cands, DenseIndexConfig(b=32, c=8, kmeans_iters=3, ns_align=4), device=cuda)
+    cfg = RetrievalConfig(variant=variant, k=10, gamma=4, gamma0=2)
+    ids_k, vals_k = retrieve_dense(idx, q, cfg, impl="kernel")
+    ids_r, vals_r = retrieve_dense(idx, q, cfg, impl="ref")
+    np.testing.assert_array_equal(ids_k.cpu().numpy(), ids_r.cpu().numpy())
+    np.testing.assert_allclose(vals_k.cpu().numpy(), vals_r.cpu().numpy(), rtol=1e-5, atol=1e-5)

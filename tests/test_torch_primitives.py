@@ -102,3 +102,23 @@ def test_config_validation_and_dynamic_args():
     assert d.mu.tolist() == [0.25, 0.5] and d.beta.dtype == torch.float32
     with pytest.raises(ValueError):
         dynamic_args([DynamicParams()], 2, 10, "cpu")
+
+
+@pytest.mark.parametrize("static_kw,dyn_kw", [
+    (dict(variant="lsp0", gamma=123, gamma0=4, k_max=10), dict(k=10)),
+    (dict(variant="lsp1", gamma=8, gamma0=2, k_max=20, block_budget=7, doc_layout="flat"),
+     dict(k=5, mu=0.3, eta=0.9)),
+])
+def test_combine_matches_jax(static_kw, dyn_kw):
+    from repro.core.config import DynamicParams as JaxDynamicParams, StaticConfig as JaxStaticConfig
+    from repro.core.config import combine as jax_combine
+    from repro_torch.core.config import RetrievalConfig, combine
+
+    got = combine(StaticConfig(**static_kw), DynamicParams(**dyn_kw))
+    want = jax_combine(JaxStaticConfig(**static_kw), JaxDynamicParams(**dyn_kw))
+    for field in RetrievalConfig.__dataclass_fields__:
+        assert getattr(got, field) == getattr(want, field), field
+    assert got.resolved_sb_budget() == want.resolved_sb_budget()
+    assert got.split() == (StaticConfig(**dict(static_kw, k_max=dyn_kw["k"])), DynamicParams(**dyn_kw))
+    with pytest.raises(ConfigError):
+        combine(StaticConfig(**static_kw), DynamicParams(k=static_kw["k_max"] + 1))

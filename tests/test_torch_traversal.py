@@ -1,6 +1,7 @@
 """Traversal parity: the port's search_retrieve against the JAX package's
 (impl="ref") on the same index and queries, for every variant at several
-dynamic points, a mixed per-row batch and a binding block budget.
+dynamic points, a mixed per-row batch, a binding block budget and the flat
+document layout.
 
 Doc ids, θ-driven visit counters must be equal; scores and θ allclose at
 rtol=1e-5, atol=1e-5 (float32 sums in another order).
@@ -13,7 +14,8 @@ import torch
 from repro.core import jit_search as jax_jit_search
 from repro.core.config import DynamicParams as JaxDynamicParams, StaticConfig as JaxStaticConfig
 from repro.core.exact import retrieve_exact as jax_retrieve_exact
-from repro_torch.core.config import DynamicParams, StaticConfig
+from repro_torch.core import ops
+from repro_torch.core.config import ConfigError, DynamicParams, StaticConfig
 from repro_torch.core.exact import retrieve_exact
 from repro_torch.core.lsp import search_retrieve
 from repro_torch.core.query import QueryBatch
@@ -88,6 +90,24 @@ def test_search_retrieve_matches_jax(jax_runner, tiny_qb, port_index, port_qb, c
     scfg_kw, points = CASES[case]
     want = _run_both(jax_runner, tiny_qb, port_index, port_qb, scfg_kw, points[point])
     assert (np.asarray(want.doc_ids) >= 0).any()  # the case retrieves something
+
+
+@pytest.mark.parametrize("case,point", [(c, i) for c in ("lsp0", "lsp1", "bmp") for i in range(len(CASES[c][1]))])
+def test_flat_layout_matches_jax(jax_runner, tiny_qb, port_index, port_qb, case, point):
+    """Round 0 and phase 3 score from the flat operand (doc_score_flat)."""
+    scfg_kw, points = CASES[case]
+    _run_both(jax_runner, tiny_qb, port_index, port_qb, dict(scfg_kw, doc_layout="flat"), points[point])
+
+
+def test_flat_layout_without_its_operand_raises(port_index, port_qb):
+    no_flat = port_index._replace(docs_flatq=None)
+    qdense = torch.zeros((1, port_index.vocab + 1))
+    with pytest.raises(ConfigError, match="flat"):
+        ops.score_gather(no_flat, qdense, torch.zeros((1, 2), dtype=torch.int32), "flat")
+    with pytest.raises(ConfigError, match="flat"):
+        search_retrieve(no_flat, port_qb, StaticConfig(gamma=8, gamma0=2, doc_layout="flat"))
+    with pytest.raises(ConfigError, match="doc_layout"):
+        StaticConfig(doc_layout="csr")
 
 
 @pytest.mark.parametrize("case", ["lsp1", "lsp2", "bmp"])
