@@ -14,8 +14,12 @@ under ``doc_layout="flat"`` (kernel path, ``impl="ref"``); builds a dense
 index of 1,000,000 synthetic 64-dim candidate embeddings on the card and
 answers 256 query rows with ``retrieve_dense`` (kernel path, ``impl="ref"``,
 exhaustive); holds each kernel against its plain version again at the shapes
-its path gave it and times both with CUDA events (median of 20, L2 flushed);
-times ``search_batch`` and profiles one call of each path (device kernels,
+its path gave it and times both with CUDA events (median of 20, L2 flushed):
+doc_score_fwd at the block ids and mask of round 0 and phase 3, with two
+bounds (its contract's: the live blocks and the query-row sectors they look
+up; and every selected block) and again with the query row padded past what
+shared memory holds, so every lookup goes to L2; times
+``search_batch`` and profiles one call of each path (device kernels,
 device idle share). Each path's launch counts are set to 0 just before it runs and read
 just after. The second-to-last line is a JSON object of per-kernel numbers,
 the last ``{"ok": true, ...}``.
@@ -46,6 +50,7 @@ N_CANDS, DIM, N_CENTRES, N_INTEREST_ROWS = 1_000_000, 64, 64, 256
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 TOL = dict(rtol=1e-5, atol=1e-4)  # float32 sums in another order than the plain version
+L2_ROW_FLOATS = 60_000  # a dense query row this long does not fit in an H100 thread block's shared memory
 REPS = 20
 # name -> (core.ops attribute, CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -123,14 +128,31 @@ def boundsum_work(packed, c, bits, tids, ws, sel):
     return nbytes, 2.0 * int(live.sum()) * c
 
 
-def doc_score_work(tids3, ws3, qdense, blk):
+def doc_score_work(tids3, ws3, qdense, blk, mask):
+    """The contract's own work: the live blocks (each distinct one read once),
+    the 32-byte sectors of the dense query rows that their non-sentinel
+    slots look up (each distinct one read once), the mask, the live pairs'
+    block ids, the output written once; FMAs on live non-sentinel slots."""
     import torch
 
     _, b, t = tids3.shape
-    blocks = torch.unique(blk).numel()
-    postings = int((tids3[blk.long()] != qdense.shape[1] - 1).sum())  # non-sentinel slots
-    nbytes = blocks * b * t * (4 + ws3.element_size()) + _nbytes(qdense, blk) + blk.numel() * b * 4
-    return nbytes, 2.0 * postings
+    vp = qdense.shape[1]
+    live = blk[mask].long()
+    blocks = torch.unique(live).numel()
+    looked_up = tids3[live].reshape(live.numel(), b * t).long()  # [live pairs, b*T]
+    slot = looked_up != vp - 1  # non-sentinel slots
+    q_of = mask.nonzero()[:, 0][:, None].expand_as(looked_up)
+    sectors = torch.unique((q_of * vp + looked_up)[slot] // 8).numel()  # 8 floats a sector
+    nbytes = (blocks * b * t * (4 + ws3.element_size()) + sectors * 32 + _nbytes(mask)
+              + live.numel() * 4 + blk.numel() * b * 4)
+    return nbytes, 2.0 * int(slot.sum())
+
+
+def doc_score_work_every_selected(tids3, ws3, qdense, blk, mask):
+    """The old contract's work: every selected block scored, mask or not."""
+    import torch
+
+    return doc_score_work(tids3, ws3, qdense, blk, torch.ones_like(mask))
 
 
 def doc_score_flat_work(tids, ws, doc_ends, qdense, blk):
@@ -194,8 +216,9 @@ def small_kernel_checks(device):
     qdense = torch.randn((3, vocab + 1), generator=g).to(device)
     qdense[:, vocab] = 0.0
     blk = ints(17, (3, 9))
-    k_out = doc_score_fwd_kernel(tids3, ws3, qdense, blk)
-    p_out = doc_score_fwd_ref(tids3, ws3, qdense, blk)
+    mask = ints(2, (3, 9), torch.bool)
+    k_out = doc_score_fwd_kernel(tids3, ws3, qdense, blk, mask)
+    p_out = doc_score_fwd_ref(tids3, ws3, qdense, blk, mask)
     torch.testing.assert_close(k_out, p_out, **TOL)
     errs["doc_score_fwd"] = float((k_out - p_out).abs().max())
     for wdtype in (torch.uint8, torch.uint16):
@@ -559,6 +582,18 @@ def smoke(device) -> int:
             shape = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
             log(f"{key} at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
                 f"({bound_by}), max_abs_err {err:.3g}")
+            if key == "doc_score_fwd":
+                live = int(args[4].sum())
+                every_ms, every_by = bound(*doc_score_work_every_selected(*args))
+                # zero columns past what shared memory holds: the kernel then looks every term up in L2
+                wide = list(args)
+                wide[2] = torch.nn.functional.pad(args[2], (0, L2_ROW_FLOATS - args[2].shape[1]))
+                l2_out = kernel(*wide)
+                torch.testing.assert_close(l2_out, p_out, **TOL)
+                l2_ms = timed_ms(lambda: kernel(*wide), flush)
+                log(f"  {live} of {args[4].numel()} (q, s) pairs live; bound if every selected block were "
+                    f"scored {every_ms:.4f} ms ({every_by}); query row looked up from L2 instead of shared "
+                    f"memory: {l2_ms:.4f} ms (bits equal: {torch.equal(l2_out, k_out)})")
             per_call.append((ms, err, plain_ms, bound_ms, bound_by, library_ms(key, args)))
         ms, err, plain_ms, bound_ms, bound_by, lib_ms = max(per_call, key=lambda p: p[0])  # the largest call
         rows.append({"name": key, "route": "cuda", "source": src, "replaces": replaces,

@@ -69,18 +69,19 @@ def scoring_operand(index, layout: str):
     return operand
 
 
-def score_gather(index, qdense: torch.Tensor, blk_ids: torch.Tensor, layout: str = "fwd",
-                 impl: str = "auto") -> torch.Tensor:
-    """Per-document scores of the selected blocks: [Q, S] block ids -> [Q, S, b],
-    with the per-block dequant scales applied, from the ``layout`` operand
-    ("fwd" or "flat"). Padded or ineligible blocks are not masked here
-    (``scoring.score_blocks`` does that)."""
+def score_gather(index, qdense: torch.Tensor, blk_ids: torch.Tensor, blk_mask: torch.Tensor,
+                 layout: str = "fwd", impl: str = "auto") -> torch.Tensor:
+    """Per-document scores of the selected blocks: [Q, S] block ids and their
+    bool mask -> [Q, S, b], with the per-block dequant scales applied, from
+    the ``layout`` operand ("fwd" or "flat"). Masked blocks score 0 (the fwd
+    kernel does not read them); padded documents are not masked here
+    (``scoring.score_blocks`` masks both to NEG)."""
     operand = scoring_operand(index, layout)
     if layout == "flat":
         raw = _raw(impl, operand.tids, doc_score_flat_kernel, doc_score_flat_ref)
-        return doc_score_flat_op(operand, qdense, blk_ids, raw)
+        return doc_score_flat_op(operand, qdense, blk_ids, blk_mask, raw)
     raw = _raw(impl, operand.tids, doc_score_fwd_kernel, doc_score_fwd_ref)
-    return doc_score_fwd_op(operand, qdense, blk_ids, raw)
+    return doc_score_fwd_op(operand, qdense, blk_ids, blk_mask, raw)
 
 
 def dequant_matmul(x: torch.Tensor, packed_w: torch.Tensor, bits: int, n: int, scale: float = 1.0,

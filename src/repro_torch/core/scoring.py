@@ -45,7 +45,7 @@ def score_blocks(
     blk_ids/blk_mask [Q, S] -> (scores [Q, S*b], positions [Q, S*b]). Masked
     blocks and padded docs score NEG."""
     b = index.b
-    scores = ops.score_gather(index, qdense, blk_ids, layout, impl)  # [Q, S, b]
+    scores = ops.score_gather(index, qdense, blk_ids, blk_mask, layout, impl)  # [Q, S, b]
     pos = blk_ids[:, :, None] * b + torch.arange(b, device=blk_ids.device)[None, None, :]
     valid = index.doc_remap[torch.clamp(pos, 0, index.doc_remap.shape[0] - 1)] < index.n_docs
     scores = torch.where(valid & blk_mask[:, :, None], scores, NEG)

@@ -31,7 +31,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     "sbmax": ("sbmax_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "boundsum_gather": ("boundsum_gather_launch", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    "doc_score": ("doc_score_fwd_launch", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "doc_score": ("doc_score_fwd_launch", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "doc_score_flat": ("doc_score_flat_launch", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "dequant_matmul": ("dequant_matmul_launch", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }

@@ -11,7 +11,7 @@ import torch
 from repro_torch.index.pack import SEG_WORDS
 from repro_torch.kernels import _build
 
-MAX_ROW_TILES = 65535  # grid.y: ceil(M / 8) thread blocks of 8 rows
+MAX_WORD_TILES = 65535  # grid.y: W / 32 thread blocks of 32 packed words (grid.x, the row tiles, has no limit)
 
 
 def dequant_matmul_kernel(
@@ -29,8 +29,10 @@ def dequant_matmul_kernel(
         raise ValueError(f"bits must be 4 or 8, got {bits}")
     m, k = x.shape
     n_words = packed_w.shape[1]
-    if packed_w.shape[0] != k or n_words % SEG_WORDS or -(-m // 8) > MAX_ROW_TILES:
+    if packed_w.shape[0] != k or n_words % SEG_WORDS or n_words // 32 > MAX_WORD_TILES:
         raise ValueError(f"bad shapes: x {tuple(x.shape)}, packed_w {tuple(packed_w.shape)}")
+    if packed_w.data_ptr() % 16:
+        raise ValueError("packed_w must be 16-byte aligned: the kernel stages it with 16-byte cp.async copies")
     out = torch.empty((m, n_words * (32 // bits)), dtype=torch.float32, device=dev)
     launch = _build.load("dequant_matmul")
     with torch.cuda.device(dev):

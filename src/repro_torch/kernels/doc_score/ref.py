@@ -14,14 +14,15 @@ def gather_weights(ws: torch.Tensor, *idx: torch.Tensor) -> torch.Tensor:
 
 
 def doc_score_fwd_ref(tids3: torch.Tensor, ws3: torch.Tensor, qdense: torch.Tensor,
-                      blk_ids: torch.Tensor) -> torch.Tensor:
+                      blk_ids: torch.Tensor, blk_mask: torch.Tensor) -> torch.Tensor:
     """float32 [Q, S, b] raw per-document scores of blocks ``blk_ids`` [Q, S]
-    (pre-clamped). Sentinel term ids (== vocab) hit the zero column of qdense."""
+    (pre-clamped), 0 where ``blk_mask`` [Q, S] is False. Sentinel term ids
+    (== vocab) hit the zero column of qdense."""
     q = blk_ids.shape[0]
     t = tids3[blk_ids.long()]  # [Q, S, b, T]
     w = gather_weights(ws3, blk_ids.long())
     qv = torch.gather(qdense, 1, t.reshape(q, -1).long()).view(t.shape)
-    return (qv * w).sum(dim=-1)
+    return torch.where(blk_mask[:, :, None], (qv * w).sum(dim=-1), 0.0)
 
 
 def doc_score_flat_ref(tids: torch.Tensor, ws: torch.Tensor, doc_ends: torch.Tensor, qdense: torch.Tensor,

@@ -5,17 +5,20 @@ kernel against these plain versions on the card.
 Tolerances rtol=1e-5, atol=1e-4: the sums run in float32 in another order.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.core.bounds import bound_scores
-from repro.index.layout import FlatDocsQ, PackedBounds
+from repro.index.layout import FlatDocsQ, FwdDocsQ, PackedBounds
 from repro.kernels.boundsum_gather.kernel import boundsum_gather_pallas
 from repro.kernels.dequant_matmul.kernel import dequant_matmul_pallas
 from repro.kernels.doc_score.kernel import doc_score_flat_pallas, doc_score_fwd_pallas
 from repro.kernels.doc_score.ref import doc_score_flat_ref as jax_doc_score_flat_ref
+from repro.kernels.doc_score.ref import doc_score_fwd_ref as jax_doc_score_fwd_ref
 from repro.kernels.sbmax.kernel import sbmax_pallas
 from repro_torch.index.pack import SEG_WORDS
 from repro_torch.kernels.boundsum_gather.ref import boundsum_gather_ref
@@ -30,6 +33,7 @@ from test_torch_kernels_cuda import (
     DOC_SCORE_SHAPES,
     SBMAX_SHAPES,
     TOL,
+    _block_mask,
     _boundsum_inputs,
     _doc_score_flat_inputs,
     _doc_score_inputs,
@@ -70,8 +74,35 @@ def test_doc_score_fwd_plain_matches_pallas(nb, b, t, vocab, q, s):
     tids, ws, qdense, blk = _doc_score_inputs(nb, b, t, vocab, q, s)
     want = doc_score_fwd_pallas(jnp.asarray(tids), jnp.asarray(ws), jnp.asarray(qdense),
                                 jnp.asarray(blk), interpret=True)
-    got = doc_score_fwd_ref(_t(tids), _t(ws), _t(qdense), _t(blk))
+    got = doc_score_fwd_ref(_t(tids), _t(ws), _t(qdense), _t(blk), torch.ones(blk.shape, dtype=torch.bool))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_pallas_and_jax_ref(bits):
+    """One input set at ``bits``-wide weights and its unmasked raw scores from
+    the Pallas kernel (interpret mode) and the JAX plain version."""
+    arrays = _doc_score_inputs(*DOC_SCORE_SHAPES[1], bits)
+    tids, ws, qdense, blk = (jnp.asarray(a) for a in arrays)
+    pallas = doc_score_fwd_pallas(tids, ws, qdense, blk, interpret=True)
+    jax_ref = jax_doc_score_fwd_ref(FwdDocsQ(tids, ws, None, bits, tids.shape[2]), qdense, blk)
+    return arrays, np.asarray(pallas), np.asarray(jax_ref)
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+@pytest.mark.parametrize("pattern,density", [("prefix", 1.0), ("prefix", 0.0), ("prefix", 0.5), ("range", 0.5),
+                                             ("random", 0.5)])
+def test_masked_doc_score_fwd_plain_matches_pallas(pattern, density, bits):
+    """The masked plain version against the Pallas kernel and the JAX plain
+    version, both masked afterwards: all ones, all zeros, a prefix, a middle
+    range and random masks."""
+    arrays, pallas, jax_ref = _fwd_pallas_and_jax_ref(bits)
+    q, s = arrays[3].shape
+    mask = _block_mask(pattern, density, q, s)
+    got = doc_score_fwd_ref(*(_t(a) for a in arrays), _t(mask)).numpy()
+    np.testing.assert_allclose(got, np.where(mask[:, :, None], pallas, 0.0), **TOL)
+    np.testing.assert_allclose(got, np.where(mask[:, :, None], jax_ref, 0.0), **TOL)
+    assert not got[~mask].any()
 
 
 def _flat_three_ways(nb, b, m, vocab, q, s, bits):

@@ -29,6 +29,15 @@ BOUNDSUM_GRID = [(4, 8), (4, 16), (4, 64), (8, 4), (8, 16)]
 DOC_SCORE_SHAPES = [(32, 8, 16, 64, 2, 5), (17, 4, 24, 300, 3, 9), (8, 16, 8, 33, 1, 3)]
 DOC_SCORE_FLAT_SHAPES = [(24, 8, 40, 64, 2, 6), (9, 4, 16, 120, 3, 4)]
 DEQUANT_SHAPES = [(64, 256, 1), (128, 512, 2)]  # (M, K, 128-word segments)
+# (pattern, density) of block masks: the traversal's masks are row prefixes
+# (full-width cut, competitive cut), ranges not starting at 0 (bmp) and all
+# ones (round 0); random masks hold the kernel to no order at all
+MASKS = [("prefix", 0.0), ("prefix", 1.0)] + [(p, d) for p in ("prefix", "range", "random") for d in (0.001, 0.5)]
+# (nb, b, T, vocab, Q, S): block rows of 16-byte multiples (bulk copies; T = 88
+# is the synthetic index's t_pad), rows that are not at 8 bits (plain loads)
+# over more (q, s) pairs than one window of every thread block, and a query
+# row too long for shared memory (every lookup through L2)
+MASKED_DOC_SCORE_SHAPES = [(64, 8, 88, 300, 4, 2000), (64, 8, 13, 300, 64, 4000), (64, 8, 88, 60_000, 4, 2000)]
 
 
 def _t(a: np.ndarray, device="cpu") -> torch.Tensor:
@@ -75,6 +84,18 @@ def _doc_score_inputs(nb, b, t, vocab, q, s, bits=8):
     qdense[:, vocab] = 0.0
     blk = rng.integers(0, nb, (q, s)).astype(np.int32)
     return tids, ws, qdense, blk
+
+
+def _block_mask(pattern: str, density: float, q: int, s: int) -> np.ndarray:
+    """bool [q, s]: per row a prefix or a range of Binomial(s, density) live
+    blocks, or each block live with probability ``density``."""
+    rng = np.random.default_rng(q * s)
+    if pattern == "random":
+        return rng.random((q, s)) < density
+    n = rng.binomial(s, density, q)
+    start = np.zeros(q, np.int64) if pattern == "prefix" else rng.integers(0, s - n + 1)
+    cols = np.arange(s)[None, :]
+    return (cols >= start[:, None]) & (cols < (start + n)[:, None])
 
 
 def _doc_score_flat_inputs(nb, b, m, vocab, q, s, bits=8):
@@ -141,9 +162,72 @@ def test_doc_score_fwd_cuda_matches_plain(cuda, nb, b, t, vocab, q, s, bits):
     from repro_torch.kernels.doc_score.kernel import doc_score_fwd_kernel
 
     tids, ws, qdense, blk = (_t(a, cuda) for a in _doc_score_inputs(nb, b, t, vocab, q, s, bits))
-    got = doc_score_fwd_kernel(tids, ws, qdense, blk)
-    want = doc_score_fwd_ref(tids, ws, qdense, blk)
+    live = torch.ones(blk.shape, dtype=torch.bool, device=cuda)
+    got = doc_score_fwd_kernel(tids, ws, qdense, blk, live)
+    want = doc_score_fwd_ref(tids, ws, qdense, blk, live)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 16])
+@pytest.mark.parametrize("nb,b,t,vocab,q,s", MASKED_DOC_SCORE_SHAPES)
+@pytest.mark.parametrize("pattern,density", MASKS)
+def test_masked_doc_score_fwd_cuda_matches_plain(cuda, pattern, density, nb, b, t, vocab, q, s, bits):
+    """Live entries equal the plain version's, masked ones are exactly 0,
+    with the query row in shared memory (where it fits) and in L2. The query
+    row is nonnegative, as query term weights are: with signed values, 16-bit
+    weights and T = 88 the terms reach 2e5 and cancel, and any two float32
+    summation orders then differ by up to 0.03 near zero (the signed rows are
+    held to a float64 sum in the next test)."""
+    from repro_torch.kernels.doc_score.kernel import doc_score_fwd_kernel
+
+    tids, ws, qdense, blk = _doc_score_inputs(nb, b, t, vocab, q, s, bits)
+    tids, ws, qdense, blk = (_t(a, cuda) for a in (tids, ws, np.abs(qdense), blk))
+    mask = _t(_block_mask(pattern, density, q, s), cuda)
+    got = doc_score_fwd_kernel(tids, ws, qdense, blk, mask)
+    want = doc_score_fwd_ref(tids, ws, qdense, blk, mask)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+    assert not got[~mask].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 16])
+@pytest.mark.parametrize("nb,b,t,vocab,q,s", [MASKED_DOC_SCORE_SHAPES[0], MASKED_DOC_SCORE_SHAPES[2]])
+@pytest.mark.parametrize("pattern,density", [("prefix", 1.0), ("random", 0.5)])
+def test_masked_doc_score_fwd_cuda_signed_within_float32_rounding(cuda, pattern, density, nb, b, t, vocab, q, s,
+                                                                  bits):
+    """Signed query rows at T = 88: each live entry is within the float32
+    rounding of the kernel's summation order of the exact (float64) sum. A
+    term is rounded once as a product, then in at most ceil(T/32) lane-strided
+    adds and 5 shuffle adds, so its error is at most that many units of
+    2^-24 of |term|: the bound scales with each document's sum of |terms|."""
+    from repro_torch.kernels.doc_score.kernel import doc_score_fwd_kernel
+
+    tids, ws, qdense, blk = (_t(a, cuda) for a in _doc_score_inputs(nb, b, t, vocab, q, s, bits))
+    mask = _t(_block_mask(pattern, density, q, s), cuda)
+    got = doc_score_fwd_kernel(tids, ws, qdense, blk, mask)
+    exact = doc_score_fwd_ref(tids, ws, qdense.double(), blk, mask)
+    magnitude = doc_score_fwd_ref(tids, ws, qdense.abs().double(), blk, mask)  # sum of |terms|, ws >= 0
+    roundings = 1 + -(-t // 32) + 5
+    assert ((got.double() - exact).abs() <= roundings * 2.0**-24 * magnitude).all()
+    assert not got[~mask].any()
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_repeat_bit_identically(cuda):
+    """The same inputs give the same bits on every call (no atomics)."""
+    from repro_torch.kernels.dequant_matmul.kernel import dequant_matmul_kernel
+    from repro_torch.kernels.doc_score.kernel import doc_score_fwd_kernel
+
+    x, packed = (_t(a, cuda) for a in _dequant_inputs(4, 64, 64, 1))
+    first = dequant_matmul_kernel(x, packed, 4)
+    assert all(torch.equal(first.view(torch.int32), dequant_matmul_kernel(x, packed, 4).view(torch.int32))
+               for _ in range(3))
+    nb, b, t, vocab, q, s = MASKED_DOC_SCORE_SHAPES[0]
+    args = [_t(a, cuda) for a in _doc_score_inputs(nb, b, t, vocab, q, s)]
+    args.append(_t(_block_mask("random", 0.5, q, s), cuda))
+    first = doc_score_fwd_kernel(*args)
+    assert all(torch.equal(first.view(torch.int32), doc_score_fwd_kernel(*args).view(torch.int32)) for _ in range(3))
 
 
 @pytest.mark.cuda
@@ -159,17 +243,19 @@ def test_doc_score_flat_cuda_matches_plain(cuda, nb, b, m, vocab, q, s, bits):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,segs", DEQUANT_SHAPES + [(100, 64, 1), (3, 300, 2)])
+@pytest.mark.parametrize("k", [64, 100, 300])
+@pytest.mark.parametrize("m", [1, 3, 64, 100, 128, 1024])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("bits", [4, 8])
-def test_dequant_matmul_cuda_matches_plain(cuda, bits, dtype, m, k, segs):
-    """Includes M that is not a multiple of the 8-row tile (or of 128) and K
-    that is not a multiple of the 256-deep shared-memory slice. Kernel and
-    plain version both sum in float32 from the same exact values, so both
-    dtypes are held at the float32 tolerance."""
+def test_dequant_matmul_cuda_matches_plain(cuda, bits, dtype, m, k):
+    """Every row tiling the launch picks (8, 4, 2 and 1 rows a thread block),
+    M that is not a multiple of it, K that is not a multiple of the warps or of
+    the 128-deep shared-memory slice; 128 packed words at the dense path's
+    K = 64, 256 otherwise. Kernel and plain version both sum in float32 from
+    the same exact values, so both dtypes are held at the float32 tolerance."""
     from repro_torch.kernels.dequant_matmul.kernel import dequant_matmul_kernel
 
-    x, packed = _dequant_inputs(bits, m, k, segs)
+    x, packed = _dequant_inputs(bits, m, k, 1 if k == 64 else 2)
     x, packed = _t(x, cuda).to(getattr(torch, dtype)), _t(packed, cuda)
     got = dequant_matmul_kernel(x, packed, bits)
     want = dequant_matmul_ref(x, packed, bits)

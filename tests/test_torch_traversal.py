@@ -103,7 +103,8 @@ def test_flat_layout_without_its_operand_raises(port_index, port_qb):
     no_flat = port_index._replace(docs_flatq=None)
     qdense = torch.zeros((1, port_index.vocab + 1))
     with pytest.raises(ConfigError, match="flat"):
-        ops.score_gather(no_flat, qdense, torch.zeros((1, 2), dtype=torch.int32), "flat")
+        ops.score_gather(no_flat, qdense, torch.zeros((1, 2), dtype=torch.int32), torch.ones((1, 2), dtype=torch.bool),
+                         "flat")
     with pytest.raises(ConfigError, match="flat"):
         search_retrieve(no_flat, port_qb, StaticConfig(gamma=8, gamma0=2, doc_layout="flat"))
     with pytest.raises(ConfigError, match="doc_layout"):
