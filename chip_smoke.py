@@ -15,12 +15,14 @@ index of 1,000,000 synthetic 64-dim candidate embeddings on the card and
 answers 256 query rows with ``retrieve_dense`` (kernel path, ``impl="ref"``,
 exhaustive); holds each kernel against its plain version again at the shapes
 its path gave it and times both with CUDA events (median of 20, L2 flushed):
-doc_score_fwd at the block ids and mask of round 0 and phase 3, with two
-bounds (its contract's: the live blocks and the query-row sectors they look
-up; and every selected block) and again with the query row padded past what
-shared memory holds, so every lookup goes to L2; times
-``search_batch`` and profiles one call of each path (device kernels,
-device idle share). Each path's launch counts are set to 0 just before it runs and read
+doc_score_fwd and doc_score_flat at the block ids and mask of round 0 and
+phase 3, boundsum_gather at phase 2's superblocks and eligibility mask, each
+masked kernel with two bounds (its contract's: the live blocks or granules
+and the query-row sectors they look up; and every selected block or
+superblock) and two floors (the kernel with every pair masked, and a
+``zero_()`` of its output), the doc_score kernels again with the query row padded past what
+shared memory holds, so every lookup goes to L2; times ``search_batch`` and
+profiles one call of each path (device kernels, device idle share). Each path's launch counts are set to 0 just before it runs and read
 just after. The second-to-last line is a JSON object of per-kernel numbers,
 the last ``{"ok": true, ...}``.
 Any failed check raises and exits non-zero; without a CUDA device it exits 1
@@ -51,6 +53,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 TOL = dict(rtol=1e-5, atol=1e-4)  # float32 sums in another order than the plain version
 L2_ROW_FLOATS = 60_000  # a dense query row this long does not fit in an H100 thread block's shared memory
+QDENSE_ARG = {"doc_score_fwd": 2, "doc_score_flat": 3}  # where each doc_score kernel takes its dense query rows
 REPS = 20
 # name -> (core.ops attribute, CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -117,14 +120,18 @@ def sbmax_work(packed, tids, ws, bits, granule):
     return nbytes, 2.0 * int(live.sum()) * w * vpw
 
 
-def boundsum_work(packed, c, bits, tids, ws, sel):
+def boundsum_work(packed, c, bits, tids, ws, sel, mask):
+    """The contract's own work: the granules of the live (term, eligible
+    superblock) pairs (each distinct one read once), the query terms, the
+    mask, the eligible pairs' superblock ids, the output written once; two
+    operations per live term and bound."""
     import torch
 
     cw = c * bits // 32
-    live = (ws != 0)[:, :, None].expand(-1, -1, sel.shape[1])
+    live = (ws != 0)[:, :, None] & mask[:, None, :]  # [Q, nq, S]
     pairs = tids.long()[:, :, None] * (packed.shape[1] // cw) + sel.long()[:, None, :]
     granules = torch.unique(pairs[live]).numel()
-    nbytes = granules * cw * 4 + _nbytes(tids, ws, sel) + sel.numel() * c * 4
+    nbytes = granules * cw * 4 + _nbytes(tids, ws, mask) + int(mask.sum()) * 4 + sel.numel() * c * 4
     return nbytes, 2.0 * int(live.sum()) * c
 
 
@@ -148,22 +155,39 @@ def doc_score_work(tids3, ws3, qdense, blk, mask):
     return nbytes, 2.0 * int(slot.sum())
 
 
-def doc_score_work_every_selected(tids3, ws3, qdense, blk, mask):
-    """The old contract's work: every selected block scored, mask or not."""
+def doc_score_flat_work(tids, ws, doc_ends, qdense, blk, mask):
+    """The contract's own work: each distinct live block's postings up to
+    doc_ends[b-1] and its doc_ends row, read once; the 32-byte sectors of the
+    dense query rows that the live pairs' postings look up (each distinct one
+    read once); the mask, the live pairs' block ids, the output written once;
+    FMAs on the live pairs' postings."""
     import torch
 
-    return doc_score_work(tids3, ws3, qdense, blk, torch.ones_like(mask))
-
-
-def doc_score_flat_work(tids, ws, doc_ends, qdense, blk):
-    import torch
-
-    blocks = torch.unique(blk).long()
-    live = int(doc_ends[blocks, -1].sum())  # postings before each distinct block's padding
     b = doc_ends.shape[1]
-    nbytes = (live * (4 + ws.element_size()) + blocks.numel() * b * 4 + _nbytes(qdense, blk)
-              + blk.numel() * b * 4)
-    return nbytes, 2.0 * int(doc_ends[blk.long(), -1].sum())
+    m = tids.shape[1]
+    vp = qdense.shape[1]
+    live = blk[mask].long()
+    blocks = torch.unique(live)
+    n_live = doc_ends[:, -1].long().clamp(0, m)  # postings before each block's padding
+    looked_up = tids[live].long()  # [live pairs, m]
+    posting = torch.arange(m, device=tids.device)[None, :] < n_live[live][:, None]
+    q_of = mask.nonzero()[:, 0][:, None].expand_as(looked_up)
+    sectors = torch.unique((q_of * vp + looked_up)[posting] // 8).numel()  # 8 floats a sector
+    nbytes = (int(n_live[blocks].sum()) * (4 + ws.element_size()) + blocks.numel() * b * 4 + sectors * 32
+              + _nbytes(mask) + live.numel() * 4 + blk.numel() * b * 4)
+    return nbytes, 2.0 * int(posting.sum())
+
+
+def every_selected(work):
+    """The pre-mask contract's work: ``work`` with every selected block or
+    superblock live (the mask is the last argument)."""
+
+    def every(*args):
+        import torch
+
+        return work(*args[:-1], torch.ones_like(args[-1]))
+
+    return every
 
 
 def dequant_matmul_work(x, packed, bits):
@@ -205,9 +229,9 @@ def small_kernel_checks(device):
         errs[f"sbmax bits={bits} granule={granule}"] = float((k_out - p_out).abs().max())
     for bits, c in ((4, 16), (8, 4)):
         packed = pack_rows_strided(ints(1 << bits, (150, 30 * c), torch.uint8), bits, c * bits // 32)
-        tids, ws, sel = ints(150, (2, 9)), floats((2, 9)), ints(30, (2, 7))
-        k_out = boundsum_gather_kernel(packed, c, bits, tids, ws, sel)
-        p_out = boundsum_gather_ref(packed, c, bits, tids, ws, sel)
+        tids, ws, sel, sel_mask = ints(150, (2, 9)), floats((2, 9)), ints(30, (2, 40)), ints(2, (2, 40), torch.bool)
+        k_out = boundsum_gather_kernel(packed, c, bits, tids, ws, sel, sel_mask)
+        p_out = boundsum_gather_ref(packed, c, bits, tids, ws, sel, sel_mask)
         torch.testing.assert_close(k_out, p_out, **TOL)
         errs[f"boundsum_gather bits={bits} c={c}"] = float((k_out - p_out).abs().max())
     vocab = 300
@@ -227,7 +251,7 @@ def small_kernel_checks(device):
         live = torch.arange(40)[None, :] < doc_ends[:, -1:].cpu()
         tids = torch.where(live, torch.randint(0, vocab, (17, 40), generator=g), vocab).to(device, torch.int32)
         ws = torch.where(live, torch.randint(0, 1 << (8 * wdtype.itemsize), (17, 40), generator=g), 0)
-        args = (tids, ws.to(torch.int32).to(device).to(wdtype), doc_ends, qdense, blk)
+        args = (tids, ws.to(torch.int32).to(device).to(wdtype), doc_ends, qdense, blk, mask)
         k_out = doc_score_flat_kernel(*args)
         p_out = doc_score_flat_ref(*args)
         torch.testing.assert_close(k_out, p_out, **TOL)
@@ -343,11 +367,14 @@ def flat_phase(idx, fwd_cfg, batches, responses, exact_ids, device, core_ops):
         (a.n_superblocks_visited, a.n_blocks_scored) == (b.n_superblocks_visited, b.n_blocks_scored)
         for a, b in zip(flat_resp, ref_resp)
     )
-    rec_ref = recall_vs_oracle(ids, np.stack([r.doc_ids for r in ref_resp]))
+    ref_ids = np.stack([r.doc_ids for r in ref_resp])
+    rec_ref = recall_vs_oracle(ids, ref_ids)
     rec_fwd = recall_vs_oracle(ids, np.stack([r.doc_ids for r in responses]))
-    log(f"flat kernel path vs flat impl='ref': counters equal {same_counters}, recall@10 {rec_ref:.4f}; "
+    log(f"flat kernel path vs flat impl='ref': counters equal {same_counters}, recall@10 {rec_ref:.4f}, "
+        f"ids identical {float((ids == ref_ids).mean()):.4f}; "
         f"flat vs fwd recall@10 {rec_fwd:.4f}; flat recall@10 vs exact {recall_vs_oracle(ids, exact_ids):.4f}")
     check(same_counters, "flat kernel and ref paths visit the same superblocks and blocks")
+    check((ids == ref_ids).all(), "flat kernel and ref paths return the same ids for every query")
     check(rec_ref >= 0.99, f"recall@10 of the flat kernel path against the flat ref path {rec_ref} < 0.99")
     check(rec_fwd >= 0.99, f"recall@10 of the flat layout against the fwd layout {rec_fwd} < 0.99")
     flat_ms = [host_ms(lambda: flat.search_batch(b)) for _ in range(3) for b in batches]
@@ -528,6 +555,7 @@ def smoke(device) -> int:
     log(f"kernel path vs impl='ref': counters equal {same_counters}, recall@10 {rec_ref:.4f}, "
         f"ids identical {float((ids == ref_ids).mean()):.4f}")
     check(same_counters, "kernel and ref paths visit the same superblocks and blocks")
+    check((ids == ref_ids).all(), "kernel and ref paths return the same ids for every query")
     check(rec_ref >= 0.99, f"recall@10 of the kernel path against the ref path {rec_ref} < 0.99")
     t0 = time.perf_counter()
     exact = Retriever.from_index(idx, retr.static_cfg, backend="exact", device=device)
@@ -554,6 +582,7 @@ def smoke(device) -> int:
              "doc_score_flat": doc_score_flat_ref, "dequant_matmul": dequant_matmul_ref}
     work = {"sbmax": sbmax_work, "boundsum_gather": boundsum_work, "doc_score_fwd": doc_score_work,
             "doc_score_flat": doc_score_flat_work, "dequant_matmul": dequant_matmul_work}
+    masked = ("boundsum_gather", "doc_score_fwd", "doc_score_flat")  # kernels whose last argument is a mask
 
     def library_ms(key, args):
         """One PyTorch call computing the same function, where there is one."""
@@ -582,18 +611,29 @@ def smoke(device) -> int:
             shape = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
             log(f"{key} at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
                 f"({bound_by}), max_abs_err {err:.3g}")
-            if key == "doc_score_fwd":
-                live = int(args[4].sum())
-                every_ms, every_by = bound(*doc_score_work_every_selected(*args))
+            if key in masked:
+                mask = args[-1]
+                every_ms, every_by = bound(*every_selected(work[key])(*args))
+                # the floor under the live work: the launch, the mask and the zero output
+                none = list(args)
+                none[-1] = torch.zeros_like(mask)
+                empty_ms = timed_ms(lambda: kernel(*none), flush)
+                zeros = torch.empty_like(k_out)
+                zero_ms = timed_ms(lambda: zeros.zero_(), flush)
+                log(f"  {int(mask.sum())} of {mask.numel()} (q, s) pairs live; bound if every selected "
+                    f"{'superblock' if key == 'boundsum_gather' else 'block'} were computed {every_ms:.4f} ms "
+                    f"({every_by}); every pair masked {empty_ms:.4f} ms; zero_() of the output alone "
+                    f"{zero_ms:.4f} ms")
+            if key in QDENSE_ARG:
                 # zero columns past what shared memory holds: the kernel then looks every term up in L2
                 wide = list(args)
-                wide[2] = torch.nn.functional.pad(args[2], (0, L2_ROW_FLOATS - args[2].shape[1]))
+                i = QDENSE_ARG[key]
+                wide[i] = torch.nn.functional.pad(args[i], (0, L2_ROW_FLOATS - args[i].shape[1]))
                 l2_out = kernel(*wide)
                 torch.testing.assert_close(l2_out, p_out, **TOL)
                 l2_ms = timed_ms(lambda: kernel(*wide), flush)
-                log(f"  {live} of {args[4].numel()} (q, s) pairs live; bound if every selected block were "
-                    f"scored {every_ms:.4f} ms ({every_by}); query row looked up from L2 instead of shared "
-                    f"memory: {l2_ms:.4f} ms (bits equal: {torch.equal(l2_out, k_out)})")
+                log(f"  query row looked up from L2 instead of shared memory: {l2_ms:.4f} ms "
+                    f"(bits equal: {torch.equal(l2_out, k_out)})")
             per_call.append((ms, err, plain_ms, bound_ms, bound_by, library_ms(key, args)))
         ms, err, plain_ms, bound_ms, bound_by, lib_ms = max(per_call, key=lambda p: p[0])  # the largest call
         rows.append({"name": key, "route": "cuda", "source": src, "replaces": replaces,

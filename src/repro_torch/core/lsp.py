@@ -161,7 +161,7 @@ def search_retrieve(
         eligible = eligible & (rank >= g0)  # round 0 already scored these
 
     # ---- phase 2: block bounds of the surviving superblocks, prune at θ/η
-    blk_bounds = ops.gathered_block_bounds(index.blk_bounds, c, qb.tids, qb.ws, top_idx, impl)
+    blk_bounds = ops.gathered_block_bounds(index.blk_bounds, c, qb.tids, qb.ws, top_idx, eligible, impl)
     blk_bounds = torch.where(eligible[:, :, None], blk_bounds, NEG)  # [Q, budget, c]
     blk_keep = blk_bounds > th[:, :, None] / eta[:, :, None]
     flat_bounds = torch.where(blk_keep, blk_bounds, NEG).reshape(blk_bounds.shape[0], -1)

@@ -52,10 +52,11 @@ def sbmax(pb: PackedBounds, tids: torch.Tensor, ws: torch.Tensor, impl: str = "a
 
 
 def gathered_block_bounds(pb: PackedBounds, c: int, tids: torch.Tensor, ws: torch.Tensor,
-                          sel_sb: torch.Tensor, impl: str = "auto") -> torch.Tensor:
-    """Block BoundSum restricted to the selected superblocks' blocks: [Q, S, c]."""
+                          sel_sb: torch.Tensor, sel_mask: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+    """Block BoundSum restricted to the selected superblocks' blocks: [Q, S, c],
+    0 where ``sel_mask`` [Q, S] is False (the kernel reads no masked granule)."""
     raw = _raw(impl, pb.packed, boundsum_gather_kernel, boundsum_gather_ref)
-    return boundsum_gather_op(pb, c, tids, ws, sel_sb, raw)
+    return boundsum_gather_op(pb, c, tids, ws, sel_sb, sel_mask, raw)
 
 
 def scoring_operand(index, layout: str):
@@ -73,8 +74,8 @@ def score_gather(index, qdense: torch.Tensor, blk_ids: torch.Tensor, blk_mask: t
                  layout: str = "fwd", impl: str = "auto") -> torch.Tensor:
     """Per-document scores of the selected blocks: [Q, S] block ids and their
     bool mask -> [Q, S, b], with the per-block dequant scales applied, from
-    the ``layout`` operand ("fwd" or "flat"). Masked blocks score 0 (the fwd
-    kernel does not read them); padded documents are not masked here
+    the ``layout`` operand ("fwd" or "flat"). Masked blocks score 0 (the
+    kernels do not read them); padded documents are not masked here
     (``scoring.score_blocks`` masks both to NEG)."""
     operand = scoring_operand(index, layout)
     if layout == "flat":

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles on first use, with ``nvcc`` for ``sm_90a``,
 into its own shared library with a plain C interface, under ``build/kernels/``
 at the repository root (listed in ``.gitignore``). The library's file name
-carries a hash of its source and flags, so an edited source is rebuilt and a
-stale library is never loaded. ``build_all`` starts one ``nvcc`` per source,
+carries a hash of its source, the ``csrc`` headers it includes and the
+flags, so an edited source or header is rebuilt and a stale library is never
+loaded. ``build_all`` starts one ``nvcc`` per source,
 all at once, and waits for them together.
 """
 
@@ -14,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -30,9 +32,9 @@ _I = ctypes.c_int
 # C signature of each library's launch function: (symbol, argtypes)
 SIGNATURES = {
     "sbmax": ("sbmax_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "boundsum_gather": ("boundsum_gather_launch", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "boundsum_gather": ("boundsum_gather_launch", [_P] * 6 + [_I] * 6 + [_P]),
     "doc_score": ("doc_score_fwd_launch", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    "doc_score_flat": ("doc_score_flat_launch", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "doc_score_flat": ("doc_score_flat_launch", [_P] * 7 + [_I] * 7 + [_P]),
     "dequant_matmul": ("dequant_matmul_launch", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
 
@@ -44,8 +46,23 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _source_bytes(path: Path, seen: set) -> bytes:
+    """``path`` followed by every header of ``csrc`` it includes (``#include
+    "x.cuh"``), recursively, each once."""
+    seen.add(path)
+    src = path.read_bytes()
+    parts = [src]
+    for header in re.findall(rb'^\s*#include\s+"([^"]+)"', src, re.M):
+        dep = CSRC / header.decode()
+        if dep not in seen:
+            parts.append(_source_bytes(dep, seen))
+    return b"".join(parts)
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    """Where library ``name`` is built: its file name hashes the source, the
+    headers it includes and the flags, so an edit to any of them rebuilds it."""
+    src = _source_bytes(CSRC / f"{name}.cu", set())
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

@@ -9,9 +9,6 @@ import torch
 
 from repro_torch.kernels import _build
 
-MAX_SMEM_BYTES = 232_448  # dynamic shared memory one H100 thread block may use
-BLOCKS_PER_CTA = 128  # flat layout: selected blocks scored by one thread block (one qdense row copy)
-
 
 def _check_common(ws: torch.Tensor, qdense: torch.Tensor, blk_ids: torch.Tensor, dev) -> None:
     _build.check_tensor("qdense", qdense, torch.float32, 2, dev)
@@ -66,28 +63,33 @@ def doc_score_flat_kernel(
     doc_ends: torch.Tensor,  # int32 [NB, b], end of each document's run
     qdense: torch.Tensor,  # float32 [Q, Vp], sentinel column zero
     blk_ids: torch.Tensor,  # int32 [Q, S], pre-clamped to [0, NB)
+    blk_mask: torch.Tensor,  # bool [Q, S]
 ) -> torch.Tensor:
-    """float32 [Q, S, b] raw (unscaled) per-document scores."""
+    """float32 [Q, S, b] raw (unscaled) per-document scores of the live
+    blocks; masked (q, s) entries are 0 and their blocks are not read. Each
+    live block's first ``doc_ends[blk, b-1]`` postings are read, not its
+    padding; the dense query row goes where ``doc_score_fwd_kernel`` puts it."""
     dev = tids.device
     _build.check_tensor("tids", tids, torch.int32, 2, dev)
     _build.check_tensor("ws", ws, ws.dtype, 2, dev)
     _build.check_tensor("doc_ends", doc_ends, torch.int32, 2, dev)
+    _build.check_tensor("blk_mask", blk_mask, torch.bool, 2, dev)
     _check_common(ws, qdense, blk_ids, dev)
-    if qdense.shape[1] * 4 > MAX_SMEM_BYTES or blk_ids.shape[0] > 65535:
-        raise ValueError(f"the dense query row ({qdense.shape[1]} floats) must fit in {MAX_SMEM_BYTES} bytes "
-                         f"of shared memory, and Q ({blk_ids.shape[0]}) in grid.y")
-    if ws.shape != tids.shape or doc_ends.shape[0] != tids.shape[0]:
+    if ws.shape != tids.shape or doc_ends.shape[0] != tids.shape[0] or blk_mask.shape != blk_ids.shape:
         raise ValueError(f"bad shapes: tids {tuple(tids.shape)}, ws {tuple(ws.shape)}, "
-                         f"doc_ends {tuple(doc_ends.shape)}")
-    m = tids.shape[1]
+                         f"doc_ends {tuple(doc_ends.shape)}, blk_ids {tuple(blk_ids.shape)}, "
+                         f"blk_mask {tuple(blk_mask.shape)}")
+    nb, m = tids.shape
     b = doc_ends.shape[1]
     q, s = blk_ids.shape
+    if q * s >= 2**31:
+        raise ValueError(f"too many (query, block) pairs: {q} x {s}")
     out = torch.empty((q, s, b), dtype=torch.float32, device=dev)
     launch = _build.load("doc_score_flat")
     with torch.cuda.device(dev):
-        err = launch(tids.data_ptr(), ws.data_ptr(), doc_ends.data_ptr(), qdense.data_ptr(),
-                     blk_ids.data_ptr(), out.data_ptr(), q, s, b, m, qdense.shape[1], ws.element_size(),
-                     BLOCKS_PER_CTA, torch.cuda.current_stream(dev).cuda_stream)
+        err = launch(tids.data_ptr(), ws.data_ptr(), doc_ends.data_ptr(), qdense.data_ptr(), blk_ids.data_ptr(),
+                     blk_mask.data_ptr(), out.data_ptr(), q, s, nb, b, m, qdense.shape[1], ws.element_size(),
+                     torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("doc_score_flat", err)
     doc_score_flat_kernel.launches += 1
     return out

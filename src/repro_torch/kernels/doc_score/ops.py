@@ -28,8 +28,9 @@ def doc_score_fwd_op(fwdq: FwdDocsQ, qdense: torch.Tensor, blk_ids: torch.Tensor
 def doc_score_flat_op(flatq: FlatDocsQ, qdense: torch.Tensor, blk_ids: torch.Tensor, blk_mask: torch.Tensor,
                       raw_fn: Callable) -> torch.Tensor:
     """``doc_score_fwd_op`` over the flat operand: ``raw_fn`` is
-    ``doc_score_flat_kernel`` or its plain version ``doc_score_flat_ref``,
-    which score every selected block; the mask is applied to their result."""
+    ``doc_score_flat_kernel``, which reads only the live blocks, or its plain
+    version ``doc_score_flat_ref``; both give 0 for masked blocks."""
     blk_c = _clamp(blk_ids, flatq.tids.shape[0])
-    raw = raw_fn(flatq.tids, flatq.ws, flatq.doc_ends, qdense.to(torch.float32).contiguous(), blk_c)
-    return torch.where(blk_mask[:, :, None], raw, 0.0) * flatq.scales[blk_c.long()][:, :, None]
+    raw = raw_fn(flatq.tids, flatq.ws, flatq.doc_ends, qdense.to(torch.float32).contiguous(), blk_c,
+                 blk_mask.contiguous())
+    return raw * flatq.scales[blk_c.long()][:, :, None]

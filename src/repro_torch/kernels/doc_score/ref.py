@@ -26,10 +26,11 @@ def doc_score_fwd_ref(tids3: torch.Tensor, ws3: torch.Tensor, qdense: torch.Tens
 
 
 def doc_score_flat_ref(tids: torch.Tensor, ws: torch.Tensor, doc_ends: torch.Tensor, qdense: torch.Tensor,
-                       blk_ids: torch.Tensor) -> torch.Tensor:
+                       blk_ids: torch.Tensor, blk_mask: torch.Tensor) -> torch.Tensor:
     """float32 [Q, S, b] raw per-document scores over flat postings: tids and
     ws [NB, m] sorted by local doc, ``doc_ends`` [NB, b] the end of each
-    document's run, ``blk_ids`` [Q, S] pre-clamped.
+    document's run, ``blk_ids`` [Q, S] pre-clamped; 0 where ``blk_mask``
+    [Q, S] is False.
 
     Each document's score is the difference of a prefix sum over its block's
     segment at the run's two ends. The prefix sums are float64: in float32
@@ -44,4 +45,5 @@ def doc_score_flat_ref(tids: torch.Tensor, ws: torch.Tensor, doc_ends: torch.Ten
     cs = torch.nn.functional.pad(torch.cumsum(contrib, dim=-1), (1, 0))  # [Q, S, m+1]
     ends = doc_ends[blk].long()  # [Q, S, b]
     starts = torch.nn.functional.pad(ends[..., :-1], (1, 0))
-    return (cs.gather(-1, ends) - cs.gather(-1, starts)).to(torch.float32)
+    raw = (cs.gather(-1, ends) - cs.gather(-1, starts)).to(torch.float32)
+    return torch.where(blk_mask[:, :, None], raw, 0.0)

@@ -65,8 +65,31 @@ def test_boundsum_gather_plain_matches_pallas(bits, c):
     packed, tids, ws, sel = _boundsum_inputs(bits, c)
     want = boundsum_gather_pallas(jnp.asarray(_u32(packed)), c, bits, jnp.asarray(tids), jnp.asarray(ws),
                                   jnp.asarray(sel), interpret=True)
-    got = boundsum_gather_ref(_t(packed), c, bits, _t(tids), _t(ws), _t(sel))
+    got = boundsum_gather_ref(_t(packed), c, bits, _t(tids), _t(ws), _t(sel), torch.ones(sel.shape, dtype=torch.bool))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@functools.lru_cache(maxsize=None)
+def _boundsum_pallas(bits, c):
+    """One input set of the (bits, c) grid and its unmasked sums from the
+    Pallas kernel (interpret mode)."""
+    arrays = _boundsum_inputs(bits, c)
+    packed, tids, ws, sel = arrays
+    want = boundsum_gather_pallas(jnp.asarray(_u32(packed)), c, bits, jnp.asarray(tids), jnp.asarray(ws),
+                                  jnp.asarray(sel), interpret=True)
+    return arrays, np.asarray(want)
+
+
+@pytest.mark.parametrize("bits,c", BOUNDSUM_GRID)
+@pytest.mark.parametrize("pattern,density", [("prefix", 0.0), ("range", 0.5), ("random", 0.5)])
+def test_masked_boundsum_gather_plain_matches_pallas(pattern, density, bits, c):
+    """The masked plain version against the Pallas kernel masked afterwards:
+    all zeros, a middle range (phase 2's eligible ranks) and random masks."""
+    (packed, tids, ws, sel), pallas = _boundsum_pallas(bits, c)
+    mask = _block_mask(pattern, density, *sel.shape)
+    got = boundsum_gather_ref(_t(packed), c, bits, _t(tids), _t(ws), _t(sel), _t(mask)).numpy()
+    np.testing.assert_allclose(got, np.where(mask[:, :, None], pallas, 0.0), **TOL)
+    assert not got[~mask].any()
 
 
 @pytest.mark.parametrize("nb,b,t,vocab,q,s", DOC_SCORE_SHAPES)
@@ -79,9 +102,17 @@ def test_doc_score_fwd_plain_matches_pallas(nb, b, t, vocab, q, s):
 
 
 @functools.lru_cache(maxsize=None)
-def _fwd_pallas_and_jax_ref(bits):
-    """One input set at ``bits``-wide weights and its unmasked raw scores from
-    the Pallas kernel (interpret mode) and the JAX plain version."""
+def _pallas_and_jax_ref(layout, bits):
+    """One input set of ``layout`` ("fwd" or "flat") at ``bits``-wide weights
+    and its unmasked raw scores from the Pallas kernel (interpret mode) and
+    the JAX plain version."""
+    if layout == "flat":
+        nb, b, m, vocab, q, s = DOC_SCORE_FLAT_SHAPES[0]
+        arrays = _doc_score_flat_inputs(nb, b, m, vocab, q, s, bits)
+        tids, ws, doc_ends, qdense, blk = (jnp.asarray(a) for a in arrays)
+        pallas = doc_score_flat_pallas(tids, ws, doc_ends, qdense, blk, interpret=True)
+        jax_ref = jax_doc_score_flat_ref(FlatDocsQ(tids, ws, doc_ends, None, bits, m), qdense, blk)
+        return arrays, np.asarray(pallas), np.asarray(jax_ref)
     arrays = _doc_score_inputs(*DOC_SCORE_SHAPES[1], bits)
     tids, ws, qdense, blk = (jnp.asarray(a) for a in arrays)
     pallas = doc_score_fwd_pallas(tids, ws, qdense, blk, interpret=True)
@@ -89,19 +120,24 @@ def _fwd_pallas_and_jax_ref(bits):
     return arrays, np.asarray(pallas), np.asarray(jax_ref)
 
 
+@pytest.mark.parametrize("layout", ["fwd", "flat"])
 @pytest.mark.parametrize("bits", [8, 16])
 @pytest.mark.parametrize("pattern,density", [("prefix", 1.0), ("prefix", 0.0), ("prefix", 0.5), ("range", 0.5),
                                              ("random", 0.5)])
-def test_masked_doc_score_fwd_plain_matches_pallas(pattern, density, bits):
-    """The masked plain version against the Pallas kernel and the JAX plain
-    version, both masked afterwards: all ones, all zeros, a prefix, a middle
-    range and random masks."""
-    arrays, pallas, jax_ref = _fwd_pallas_and_jax_ref(bits)
-    q, s = arrays[3].shape
+def test_masked_doc_score_fwd_plain_matches_pallas(pattern, density, bits, layout):
+    """The masked plain version of each layout against its Pallas kernel and
+    its JAX plain version, both masked afterwards: all ones, all zeros, a
+    prefix, a middle range and random masks. The flat JAX plain version is
+    held at 8 bits only: its float32 prefix sums miss the tolerance at 16
+    (``test_float32_prefix_sums_miss_the_tolerance_at_16_bits``)."""
+    arrays, pallas, jax_ref = _pallas_and_jax_ref(layout, bits)
+    plain = doc_score_flat_ref if layout == "flat" else doc_score_fwd_ref
+    q, s = arrays[-1].shape
     mask = _block_mask(pattern, density, q, s)
-    got = doc_score_fwd_ref(*(_t(a) for a in arrays), _t(mask)).numpy()
+    got = plain(*(_t(a) for a in arrays), _t(mask)).numpy()
     np.testing.assert_allclose(got, np.where(mask[:, :, None], pallas, 0.0), **TOL)
-    np.testing.assert_allclose(got, np.where(mask[:, :, None], jax_ref, 0.0), **TOL)
+    if layout == "fwd" or bits == 8:
+        np.testing.assert_allclose(got, np.where(mask[:, :, None], jax_ref, 0.0), **TOL)
     assert not got[~mask].any()
 
 
@@ -111,7 +147,7 @@ def _flat_three_ways(nb, b, m, vocab, q, s, bits):
     tids, ws, doc_ends, qdense, blk = (jnp.asarray(a) for a in arrays)
     pallas = doc_score_flat_pallas(tids, ws, doc_ends, qdense, blk, interpret=True)
     jax_ref = jax_doc_score_flat_ref(FlatDocsQ(tids, ws, doc_ends, None, bits, m), qdense, blk)
-    got = doc_score_flat_ref(*(_t(a) for a in arrays))
+    got = doc_score_flat_ref(*(_t(a) for a in arrays), torch.ones((q, s), dtype=torch.bool))
     return got.numpy(), np.asarray(pallas), np.asarray(jax_ref)
 
 

@@ -30,14 +30,30 @@ DOC_SCORE_SHAPES = [(32, 8, 16, 64, 2, 5), (17, 4, 24, 300, 3, 9), (8, 16, 8, 33
 DOC_SCORE_FLAT_SHAPES = [(24, 8, 40, 64, 2, 6), (9, 4, 16, 120, 3, 4)]
 DEQUANT_SHAPES = [(64, 256, 1), (128, 512, 2)]  # (M, K, 128-word segments)
 # (pattern, density) of block masks: the traversal's masks are row prefixes
-# (full-width cut, competitive cut), ranges not starting at 0 (bmp) and all
-# ones (round 0); random masks hold the kernel to no order at all
+# (full-width cut, competitive cut), ranges not starting at 0 (bmp), all
+# ones (round 0) and phase 2's eligibility (a few ranks past round 0's);
+# random masks hold the kernels to no order at all
 MASKS = [("prefix", 0.0), ("prefix", 1.0)] + [(p, d) for p in ("prefix", "range", "random") for d in (0.001, 0.5)]
+MASKS += [(p, d) for p in ("range", "random") for d in (0.0, 1.0)]
 # (nb, b, T, vocab, Q, S): block rows of 16-byte multiples (bulk copies; T = 88
 # is the synthetic index's t_pad), rows that are not at 8 bits (plain loads)
-# over more (q, s) pairs than one window of every thread block, and a query
-# row too long for shared memory (every lookup through L2)
-MASKED_DOC_SCORE_SHAPES = [(64, 8, 88, 300, 4, 2000), (64, 8, 13, 300, 64, 4000), (64, 8, 88, 60_000, 4, 2000)]
+# over more (q, s) pairs than one window of every thread block, a query row
+# too long for shared memory (every lookup through L2), and more queries than
+# the card has SMs (one thread block a query)
+MASKED_DOC_SCORE_SHAPES = [(64, 8, 88, 300, 4, 2000), (64, 8, 13, 300, 64, 4000), (64, 8, 88, 60_000, 4, 2000),
+                           (64, 8, 88, 300, 200, 40)]
+# (nb, b, m, vocab, Q, S) over the flat layout: bulk copies of uint8 rows that
+# start 8 bytes past a 16-byte boundary (m = 392), of id rows that start off
+# one too (m = 50), over many windows; plain loads where the weight tensor's
+# size is no multiple of 16 bytes (63 x 20); a query row too long for shared
+# memory (every lookup through L2); more queries than SMs; more documents a
+# block than a warp has lanes (b = 40)
+MASKED_DOC_SCORE_FLAT_SHAPES = [(64, 8, 392, 300, 4, 2000), (64, 8, 50, 300, 64, 4000), (63, 8, 20, 300, 4, 2000),
+                                (64, 8, 392, 60_000, 4, 2000), (64, 8, 50, 300, 200, 40), (64, 40, 400, 300, 4, 200)]
+# (v, ns, Q, nq, S) for masked boundsum_gather: phase 2's shape (Q = 64,
+# S = budget = 250, many windows of 32) and more term slots than one chunk
+# staged in shared memory (two chunks, the sums kept across them)
+MASKED_BOUNDSUM_SHAPES = [(300, 250, 64, 40, 250), (200, 40, 3, 5000, 70)]
 
 
 def _t(a: np.ndarray, device="cpu") -> torch.Tensor:
@@ -60,12 +76,15 @@ def _sbmax_inputs(bits, v, n, q, nq, granule=SEG_WORDS):
     return _pack(mat, bits, granule), tids, ws
 
 
-def _boundsum_inputs(bits, c):
+def _boundsum_inputs(bits, c, v=150, ns=30, q=2, nq=9, s=7):
+    """Packed bounds, query terms and selected superblocks; on shapes other
+    than the default a third of the term weights are 0 (pruned terms)."""
     rng = np.random.default_rng(c)
-    v, ns, q, nq, s = 150, 30, 2, 9, 7
     mat = rng.integers(0, 1 << bits, (v, ns * c)).astype(np.uint8)
     tids = rng.integers(0, v, (q, nq)).astype(np.int32)
     ws = rng.random((q, nq)).astype(np.float32)
+    if (v, ns, q, nq, s) != (150, 30, 2, 9, 7):
+        ws[rng.random((q, nq)) < 1 / 3] = 0.0
     sel = rng.integers(0, ns, (q, s)).astype(np.int32)
     return _pack(mat, bits, c * bits // 32), tids, ws, sel
 
@@ -150,9 +169,44 @@ def test_boundsum_gather_cuda_matches_plain(cuda, bits, c):
     from repro_torch.kernels.boundsum_gather.kernel import boundsum_gather_kernel
 
     packed, tids, ws, sel = (_t(a, cuda) for a in _boundsum_inputs(bits, c))
-    got = boundsum_gather_kernel(packed, c, bits, tids, ws, sel)
-    want = boundsum_gather_ref(packed, c, bits, tids, ws, sel)
+    live = torch.ones(sel.shape, dtype=torch.bool, device=cuda)
+    got = boundsum_gather_kernel(packed, c, bits, tids, ws, sel, live)
+    want = boundsum_gather_ref(packed, c, bits, tids, ws, sel, live)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,c", BOUNDSUM_GRID)
+@pytest.mark.parametrize("v,ns,q,nq,s", MASKED_BOUNDSUM_SHAPES)
+@pytest.mark.parametrize("pattern,density", MASKS)
+def test_masked_boundsum_gather_cuda_matches_plain(cuda, pattern, density, v, ns, q, nq, s, bits, c):
+    """Live entries equal the plain version's, masked ones are exactly 0."""
+    from repro_torch.kernels.boundsum_gather.kernel import boundsum_gather_kernel
+
+    packed, tids, ws, sel = (_t(a, cuda) for a in _boundsum_inputs(bits, c, v, ns, q, nq, s))
+    mask = _t(_block_mask(pattern, density, q, s), cuda)
+    got = boundsum_gather_kernel(packed, c, bits, tids, ws, sel, mask)
+    want = boundsum_gather_ref(packed, c, bits, tids, ws, sel, mask)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+    assert not got[~mask].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,ns,q,nq,s", MASKED_BOUNDSUM_SHAPES)
+def test_boundsum_gather_cuda_reads_no_masked_granule(cuda, v, ns, q, nq, s):
+    """Masked entries of sel hold superblock ids far past the matrix: a read
+    of their granules faults at the synchronize."""
+    from repro_torch.kernels.boundsum_gather.kernel import boundsum_gather_kernel
+
+    bits, c = 4, 16
+    packed, tids, ws, sel = (_t(a, cuda) for a in _boundsum_inputs(bits, c, v, ns, q, nq, s))
+    mask = _t(_block_mask("random", 0.5, q, s), cuda)
+    poisoned = torch.where(mask, sel, 1 << 28)
+    got = boundsum_gather_kernel(packed, c, bits, tids, ws, poisoned, mask)
+    torch.cuda.synchronize()
+    want = boundsum_gather_ref(packed, c, bits, tids, ws, sel, mask)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+    assert not got[~mask].any()
 
 
 @pytest.mark.cuda
@@ -216,8 +270,9 @@ def test_masked_doc_score_fwd_cuda_signed_within_float32_rounding(cuda, pattern,
 @pytest.mark.cuda
 def test_cuda_kernels_repeat_bit_identically(cuda):
     """The same inputs give the same bits on every call (no atomics)."""
+    from repro_torch.kernels.boundsum_gather.kernel import boundsum_gather_kernel
     from repro_torch.kernels.dequant_matmul.kernel import dequant_matmul_kernel
-    from repro_torch.kernels.doc_score.kernel import doc_score_fwd_kernel
+    from repro_torch.kernels.doc_score.kernel import doc_score_flat_kernel, doc_score_fwd_kernel
 
     x, packed = (_t(a, cuda) for a in _dequant_inputs(4, 64, 64, 1))
     first = dequant_matmul_kernel(x, packed, 4)
@@ -228,6 +283,18 @@ def test_cuda_kernels_repeat_bit_identically(cuda):
     args.append(_t(_block_mask("random", 0.5, q, s), cuda))
     first = doc_score_fwd_kernel(*args)
     assert all(torch.equal(first.view(torch.int32), doc_score_fwd_kernel(*args).view(torch.int32)) for _ in range(3))
+    nb, b, m, vocab, q, s = MASKED_DOC_SCORE_FLAT_SHAPES[1]
+    args = [_t(a, cuda) for a in _doc_score_flat_inputs(nb, b, m, vocab, q, s)]
+    args.append(_t(_block_mask("random", 0.5, q, s), cuda))
+    first = doc_score_flat_kernel(*args)
+    assert all(torch.equal(first.view(torch.int32), doc_score_flat_kernel(*args).view(torch.int32)) for _ in range(3))
+    v, ns, q, nq, s = MASKED_BOUNDSUM_SHAPES[0]
+    packed, tids, ws, sel = (_t(a, cuda) for a in _boundsum_inputs(4, 16, v, ns, q, nq, s))
+    mask = _t(_block_mask("random", 0.5, q, s), cuda)
+    first = boundsum_gather_kernel(packed, 16, 4, tids, ws, sel, mask)
+    assert all(torch.equal(first.view(torch.int32),
+                           boundsum_gather_kernel(packed, 16, 4, tids, ws, sel, mask).view(torch.int32))
+               for _ in range(3))
 
 
 @pytest.mark.cuda
@@ -237,9 +304,67 @@ def test_doc_score_flat_cuda_matches_plain(cuda, nb, b, m, vocab, q, s, bits):
     from repro_torch.kernels.doc_score.kernel import doc_score_flat_kernel
 
     args = [_t(a, cuda) for a in _doc_score_flat_inputs(nb, b, m, vocab, q, s, bits)]
+    args.append(torch.ones((q, s), dtype=torch.bool, device=cuda))
     got = doc_score_flat_kernel(*args)
     want = doc_score_flat_ref(*args)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 16])
+@pytest.mark.parametrize("nb,b,m,vocab,q,s", MASKED_DOC_SCORE_FLAT_SHAPES)
+@pytest.mark.parametrize("pattern,density", MASKS)
+def test_masked_doc_score_flat_cuda_matches_plain(cuda, pattern, density, nb, b, m, vocab, q, s, bits):
+    """Live entries equal the plain version's, masked ones are exactly 0, on
+    bulk copies of rows aligned and not, plain loads, and the query row in
+    shared memory and in L2. The query row is nonnegative, as in the fwd test
+    above."""
+    from repro_torch.kernels.doc_score.kernel import doc_score_flat_kernel
+
+    tids, ws, doc_ends, qdense, blk = _doc_score_flat_inputs(nb, b, m, vocab, q, s, bits)
+    args = [_t(a, cuda) for a in (tids, ws, doc_ends, np.abs(qdense), blk)]
+    mask = _t(_block_mask(pattern, density, q, s), cuda)
+    got = doc_score_flat_kernel(*args, mask)
+    want = doc_score_flat_ref(*args, mask)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+    assert not got[~mask].any()
+
+
+def _poison_masked_blocks(blk: np.ndarray, mask: np.ndarray, nb: int) -> tuple[np.ndarray, np.ndarray]:
+    """Block ids where the live pairs use blocks [0, nb/2) only and the masked
+    pairs blocks [nb/2, nb) only; and those masked-only blocks' ids."""
+    half = nb // 2
+    return np.where(mask, blk % half, half + blk % half).astype(np.int32), np.arange(half, nb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,shape", [("fwd", 0), ("fwd", 1), ("fwd", 2), ("fwd", 3), ("flat", 0), ("flat", 2),
+                                          ("flat", 3), ("flat", 4)])
+def test_doc_score_cuda_reads_no_masked_block(cuda, layout, shape):
+    """The blocks that only masked pairs select hold term ids far past the
+    query row: a lookup of one of them faults at the synchronize. Over bulk
+    copies, plain loads and the query row in L2."""
+    from repro_torch.kernels.doc_score.kernel import doc_score_flat_kernel, doc_score_fwd_kernel
+
+    if layout == "flat":
+        nb, b, m, vocab, q, s = MASKED_DOC_SCORE_FLAT_SHAPES[shape]
+        tids, ws, doc_ends, qdense, blk = _doc_score_flat_inputs(nb, b, m, vocab, q, s)
+        kernel, plain, rest = doc_score_flat_kernel, doc_score_flat_ref, (ws, doc_ends)
+    else:
+        nb, b, t, vocab, q, s = MASKED_DOC_SCORE_SHAPES[shape]
+        tids, ws, qdense, blk = _doc_score_inputs(nb, b, t, vocab, q, s)
+        kernel, plain, rest = doc_score_fwd_kernel, doc_score_fwd_ref, (ws,)
+    mask = _block_mask("random", 0.5, q, s)
+    blk, dead = _poison_masked_blocks(blk, mask, nb)
+    poisoned = tids.copy()
+    poisoned[dead] = 1 << 30
+    rest = [_t(a, cuda) for a in rest]
+    qdense, blk, mask = _t(np.abs(qdense), cuda), _t(blk, cuda), _t(mask, cuda)
+    got = kernel(_t(poisoned, cuda), *rest, qdense, blk, mask)
+    torch.cuda.synchronize()
+    want = plain(_t(tids, cuda), *rest, qdense, blk, mask)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+    assert not got[~mask].any()
 
 
 @pytest.mark.cuda
