@@ -5,26 +5,32 @@
 
 In order: builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc;
 prints the card's name and power limit; holds each kernel against its plain
-PyTorch version at a small shape; generates a 1,048,576-document synthetic
+PyTorch version at a small shape (and sbmax at its call sites' widths on
+seeded inputs, with a sha256 of the output's bits to set beside another
+build's); generates a 1,048,576-document synthetic
 corpus (vocab 30,522) and builds its index on the card with
 ``Retriever.build``; answers 256 requests in four ``search_batch`` calls of
 64 and checks that every kernel of that path was launched; runs the same
 requests through ``impl="ref"`` and the ``exact`` backend; answers them again
-under ``doc_layout="flat"`` (kernel path, ``impl="ref"``); builds a dense
-index of 1,000,000 synthetic 64-dim candidate embeddings on the card and
-answers 256 query rows with ``retrieve_dense`` (kernel path, ``impl="ref"``,
+under ``doc_layout="flat"``, under lsp2 (sbmax at phase 1 and SBavg) and
+under bmp (sbmax as the BoundSum over all blocks), each kernel path against
+``impl="ref"`` on ids and both counters of every query; builds a dense index
+of 1,000,000 synthetic 64-dim candidate embeddings on the card and answers
+256 query rows with ``retrieve_dense`` (kernel path, ``impl="ref"``,
 exhaustive); holds each kernel against its plain version again at the shapes
 its path gave it and times both with CUDA events (median of 20, L2 flushed):
-doc_score_fwd and doc_score_flat at the block ids and mask of round 0 and
-phase 3, boundsum_gather at phase 2's superblocks and eligibility mask, each
-masked kernel with two bounds (its contract's: the live blocks or granules
-and the query-row sectors they look up; and every selected block or
+sbmax at each of its call sites (phase 1, SBavg, bmp's BoundSum; a row each,
+with a ``zero_()`` of its output as the floor), doc_score_fwd and doc_score_flat at the block ids and mask of round 0
+and phase 3, boundsum_gather at phase 2's superblocks and eligibility mask,
+each masked kernel with two bounds (its contract's: the live blocks or
+granules and the query-row sectors they look up; and every selected block or
 superblock) and two floors (the kernel with every pair masked, and a
-``zero_()`` of its output), the doc_score kernels again with the query row padded past what
-shared memory holds, so every lookup goes to L2; times ``search_batch`` and
-profiles one call of each path (device kernels, device idle share). Each path's launch counts are set to 0 just before it runs and read
-just after. The second-to-last line is a JSON object of per-kernel numbers,
-the last ``{"ok": true, ...}``.
+``zero_()`` of its output), the doc_score kernels again with the query row
+padded past what shared memory holds, so every lookup goes to L2; times
+``search_batch`` and profiles one call of each path (device kernels, device
+idle share). Each path's launch counts are set to 0 just before it
+runs and read just after. The second-to-last line is a JSON object of
+per-kernel numbers, the last ``{"ok": true, ...}``.
 Any failed check raises and exits non-zero; without a CUDA device it exits 1
 before printing any result. It imports neither JAX nor the JAX package.
 """
@@ -32,6 +38,7 @@ before printing any result. It imports neither JAX nor the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
 import statistics
@@ -67,6 +74,9 @@ KERNELS = {
     "dequant_matmul": ("dequant_matmul_kernel", "src/repro_torch/csrc/dequant_matmul.cu",
                        "src/repro/kernels/dequant_matmul/kernel.py:46"),
 }
+# sbmax's call sites (core/lsp.py), each by the index matrix it hands the kernel:
+# phase 1 of every variant but bmp, SBavg of lsp2 and sp, bmp's all-block BoundSum
+SBMAX_SITES = {"phase 1": "sb_bounds", "SBavg": "sb_avg", "bmp BoundSum": "blk_bounds"}
 
 
 def check(cond, msg):
@@ -219,7 +229,7 @@ def small_kernel_checks(device):
         return torch.rand(shape, generator=g).to(device)
 
     errs = {}
-    for bits, granule in ((4, 128), (8, 128), (4, 2)):
+    for bits, granule in ((4, 128), (8, 128), (4, 2), (8, 4)):
         packed = pack_rows_strided(ints(1 << bits, (300, 4096), torch.uint8), bits, granule)
         tids, ws = ints(300, (3, 17)), floats((3, 17))
         ws[:, -1] = 0.0
@@ -227,6 +237,22 @@ def small_kernel_checks(device):
         p_out = sbmax_ref(packed, tids, ws, bits, granule)
         torch.testing.assert_close(k_out, p_out, **TOL)
         errs[f"sbmax bits={bits} granule={granule}"] = float((k_out - p_out).abs().max())
+    # sbmax at its call sites' widths (phase 1 and SBavg: 1,024 words at granule 128; bmp: 16,384 at
+    # granule 2) on inputs that are the same in every run, so that the sha256 of the output's bits tells
+    # whether two builds of the kernel give the same bits (the index, and with it every path's inputs,
+    # differs between runs: the k-means uses atomics)
+    gd = torch.Generator(device=device).manual_seed(0)
+    for n_words, granule in ((1024, 128), (16384, 2)):
+        packed = torch.randint(-2**31, 2**31 - 1, (4096, n_words), generator=gd, device=device, dtype=torch.int32)
+        tids = torch.randint(0, 4096, (BATCH, 34), generator=gd, device=device, dtype=torch.int32)
+        ws = torch.rand((BATCH, 34), generator=gd, device=device)
+        ws[torch.rand((BATCH, 34), generator=gd, device=device) < 0.25] = 0.0  # pruned terms
+        k_out = sbmax_kernel(packed, tids, ws, 4, granule)
+        p_out = sbmax_ref(packed, tids, ws, 4, granule)
+        torch.testing.assert_close(k_out, p_out, **TOL)
+        errs[f"sbmax bits=4 granule={granule} W={n_words}"] = float((k_out - p_out).abs().max())
+        digest = hashlib.sha256(k_out.view(torch.int32).cpu().numpy().tobytes()).hexdigest()[:16]
+        log(f"sbmax at W = {n_words} words, granule {granule}, seeded inputs: sha256 of the output's bits {digest}")
     for bits, c in ((4, 16), (8, 4)):
         packed = pack_rows_strided(ints(1 << bits, (150, 30 * c), torch.uint8), bits, c * bits // 32)
         tids, ws, sel, sel_mask = ints(150, (2, 9)), floats((2, 9)), ints(30, (2, 40)), ints(2, (2, 40), torch.bool)
@@ -327,14 +353,22 @@ def capture(core_ops, names, run):
     return calls
 
 
-def counted(core_ops, run):
+def counted(core_ops, run, sites):
     """Run ``run()`` with every kernel's launch count set to 0 just before;
-    returns (run's result, {name: launches during the run})."""
+    returns (run's result, {name: launches during the run}, {sbmax call site:
+    launches during the run}). ``sites`` maps the data pointer of each packed
+    bound matrix to the call site that hands it to sbmax (SBMAX_SITES)."""
     fns = {name: getattr(core_ops, attr) for name, (attr, _, _) in KERNELS.items()}
     for fn in fns.values():
         fn.launches = 0
-    out = run()
-    return out, {name: fn.launches for name, fn in fns.items()}
+    out = []
+    sbmax_calls = capture(core_ops, ["sbmax"], lambda: out.append(run()))["sbmax"]
+    launches = {name: fn.launches for name, fn in fns.items()}
+    by_site = {site: 0 for site in SBMAX_SITES}
+    for args in sbmax_calls:
+        by_site[sites[args[0].data_ptr()]] += 1
+    check(sum(by_site.values()) == launches["sbmax"], "every sbmax launch has a call site")
+    return out[0], launches, by_site
 
 
 def host_ms(fn):
@@ -343,49 +377,55 @@ def host_ms(fn):
     return (time.perf_counter() - t0) * 1e3
 
 
-def flat_phase(idx, fwd_cfg, batches, responses, exact_ids, device, core_ops):
-    """The same requests under doc_layout="flat": kernel path (counted) against
-    impl="ref" on the card, against the fwd layout and against exact. Returns
-    (doc_score_flat launches, captured kernel calls)."""
+def path_phase(label, cfg, idx, batches, exact_ids, device, core_ops, sites, kernels, fwd_responses=None):
+    """The same requests under ``cfg``: kernel path (counted) against
+    impl="ref" on the card, ids and both counters of every query, against
+    exact and, given ``fwd_responses``, against the fwd layout; times and
+    profiles ``search_batch``. Returns (launches, sbmax launches by call site,
+    captured calls of ``kernels``, each of which must launch)."""
     import numpy as np
 
     from repro_torch.api import Retriever
     from repro_torch.eval.metrics import recall_vs_oracle
 
-    flat_cfg = dataclasses.replace(fwd_cfg, doc_layout="flat")
-    flat = Retriever.from_index(idx, flat_cfg, device=device)
-    captured = capture(core_ops, ["doc_score_flat"], lambda: flat.search_batch(batches[0]))
-    flat_resp, launches = counted(core_ops, lambda: [r for b in batches for r in flat.search_batch(b)])
-    log(f"flat layout ({flat_cfg}): launches during the 4 search_batch calls: {launches}")
-    check(launches["doc_score_flat"] > 0, "kernel doc_score_flat was never launched on the flat path")
-    ids = np.stack([r.doc_ids for r in flat_resp])
-    check(ids.shape == (N_QUERIES, K) and np.isfinite(np.stack([r.scores for r in flat_resp])).all(),
-          "flat result shape / finite scores")
-    ref = Retriever.from_index(idx, flat_cfg, impl="ref", device=device)
+    retr = Retriever.from_index(idx, cfg, device=device)
+    captured = capture(core_ops, kernels, lambda: retr.search_batch(batches[0]))
+    resp, launches, by_site = counted(core_ops, lambda: [r for b in batches for r in retr.search_batch(b)], sites)
+    log(f"{label} ({cfg}): launches during the 4 search_batch calls: {launches}; sbmax by call site {by_site}")
+    for key in kernels:
+        check(launches[key] > 0, f"kernel {key} was never launched on the {label} path")
+    ids = np.stack([r.doc_ids for r in resp])
+    check(ids.shape == (N_QUERIES, K) and np.isfinite(np.stack([r.scores for r in resp])).all(),
+          f"{label} result shape / finite scores")
+    check(((ids >= 0) & (ids < N_DOCS)).all(), f"every {label} query returns k valid doc ids")
+    ref = Retriever.from_index(idx, cfg, impl="ref", device=device)
     ref_resp = [r for b in batches for r in ref.search_batch(b)]
     same_counters = all(
         (a.n_superblocks_visited, a.n_blocks_scored) == (b.n_superblocks_visited, b.n_blocks_scored)
-        for a, b in zip(flat_resp, ref_resp)
+        for a, b in zip(resp, ref_resp)
     )
     ref_ids = np.stack([r.doc_ids for r in ref_resp])
     rec_ref = recall_vs_oracle(ids, ref_ids)
-    rec_fwd = recall_vs_oracle(ids, np.stack([r.doc_ids for r in responses]))
-    log(f"flat kernel path vs flat impl='ref': counters equal {same_counters}, recall@10 {rec_ref:.4f}, "
-        f"ids identical {float((ids == ref_ids).mean()):.4f}; "
-        f"flat vs fwd recall@10 {rec_fwd:.4f}; flat recall@10 vs exact {recall_vs_oracle(ids, exact_ids):.4f}")
-    check(same_counters, "flat kernel and ref paths visit the same superblocks and blocks")
-    check((ids == ref_ids).all(), "flat kernel and ref paths return the same ids for every query")
-    check(rec_ref >= 0.99, f"recall@10 of the flat kernel path against the flat ref path {rec_ref} < 0.99")
-    check(rec_fwd >= 0.99, f"recall@10 of the flat layout against the fwd layout {rec_fwd} < 0.99")
-    flat_ms = [host_ms(lambda: flat.search_batch(b)) for _ in range(3) for b in batches]
+    rec_fwd = 1.0 if fwd_responses is None else recall_vs_oracle(ids, np.stack([r.doc_ids for r in fwd_responses]))
+    log(f"{label} kernel path vs {label} impl='ref' ({N_QUERIES} queries): counters equal {same_counters}, "
+        f"recall@10 {rec_ref:.4f}, ids identical {float((ids == ref_ids).mean()):.4f}"
+        f"{'' if fwd_responses is None else f'; vs fwd recall@10 {rec_fwd:.4f}'}; recall@10 vs exact "
+        f"{recall_vs_oracle(ids, exact_ids):.4f}; mean superblocks visited "
+        f"{np.mean([r.n_superblocks_visited for r in resp]):.1f}, blocks scored "
+        f"{np.mean([r.n_blocks_scored for r in resp]):.1f}")
+    check(same_counters, f"{label} kernel and ref paths visit the same superblocks and blocks")
+    check((ids == ref_ids).all(), f"{label} kernel and ref paths return the same ids for every query")
+    check(rec_ref >= 0.99, f"recall@10 of the {label} kernel path against its ref path {rec_ref} < 0.99")
+    check(rec_fwd >= 0.99, f"recall@10 of the {label} path against the fwd layout {rec_fwd} < 0.99")
+    call_ms = [host_ms(lambda: retr.search_batch(b)) for _ in range(3) for b in batches]
     ref_ms = [host_ms(lambda: ref.search_batch(b)) for b in batches]
-    log(f"search_batch of {BATCH}, flat layout: median {statistics.median(flat_ms):.2f} ms over {len(flat_ms)} "
-        f"calls (kernel path); impl='ref' median {statistics.median(ref_ms):.2f} ms")
-    profile_call(f"flat-layout search_batch ({BATCH} requests)", lambda: flat.search_batch(batches[0]))
-    return launches["doc_score_flat"], captured
+    log(f"search_batch of {BATCH}, {label}: median {statistics.median(call_ms):.2f} ms over {len(call_ms)} calls "
+        f"(kernel path); impl='ref' median {statistics.median(ref_ms):.2f} ms")
+    profile_call(f"{label} search_batch ({BATCH} requests)", lambda: retr.search_batch(batches[0]))
+    return launches, by_site, captured
 
 
-def dense_phase(device, core_ops):
+def dense_phase(device, core_ops, sites):
     """Dense-embedding LSP at the recsys retrieval_cand size: build on the
     card, 256 query rows in four calls of 64 through the kernel path (counted),
     against impl="ref" and the exhaustive oracle. Returns (dequant_matmul
@@ -427,7 +467,7 @@ def dense_phase(device, core_ops):
         return np.concatenate([retrieve_dense(didx, q, cfg, impl=impl)[0].cpu().numpy() for q in calls])
 
     captured = capture(core_ops, ["dequant_matmul"], lambda: retrieve_dense(didx, calls[0], cfg))
-    ids, launches = counted(core_ops, lambda: run("auto"))
+    ids, launches, _ = counted(core_ops, lambda: run("auto"), sites)
     log(f"dense: launches during the 4 retrieve_dense calls: {launches}")
     check(launches["dequant_matmul"] > 0, "kernel dequant_matmul was never launched on the dense path")
     check(ids.shape == (N_INTEREST_ROWS, K) and ((ids >= 0) & (ids < N_CANDS)).all(),
@@ -516,6 +556,7 @@ def smoke(device) -> int:
     log(f"retriever: {retr}")
     requests = [SearchRequest(t, w) for t, w in queries]
     batches = [requests[i: i + BATCH] for i in range(0, N_QUERIES, BATCH)]
+    sites = {getattr(idx, attr).packed.data_ptr(): site for site, attr in SBMAX_SITES.items()}
 
     # ---- one warm-up batch, recording the inputs each kernel is handed
     fwd_kernels = ["sbmax", "boundsum_gather", "doc_score_fwd"]
@@ -533,11 +574,13 @@ def smoke(device) -> int:
             batch_s.append(time.perf_counter() - t0)
         return out
 
-    responses, counts = counted(core_ops, main_path)
-    log(f"launches during the 4 search_batch calls: {counts}")
+    responses, counts, by_site = counted(core_ops, main_path, sites)
+    log(f"launches during the 4 search_batch calls: {counts}; sbmax by call site {by_site}")
     launches = {key: counts[key] for key in fwd_kernels}
     for key, n in launches.items():
         check(n > 0, f"kernel {key} was never launched on the main path")
+    # sbmax has a row per call site, each with its launches on the first path that runs it
+    sbmax_launches = {"phase 1": by_site["phase 1"]}
     ids = np.stack([r.doc_ids for r in responses])
     scores = np.stack([r.scores for r in responses])
     check(ids.shape == (N_QUERIES, K) and np.isfinite(scores).all(), "result shape / finite scores")
@@ -568,12 +611,24 @@ def smoke(device) -> int:
         f"mean superblocks visited {visited:.1f} / {idx.n_superblocks}, blocks scored {blocks:.1f}")
 
     # ---- 7a. the same requests under the flat document layout
-    launches["doc_score_flat"], flat_captured = flat_phase(idx, retr.static_cfg, batches, responses, exact_ids,
-                                                           device, core_ops)
+    cfg = retr.static_cfg
+    flat_launches, _, flat_captured = path_phase("flat layout", dataclasses.replace(cfg, doc_layout="flat"), idx,
+                                                 batches, exact_ids, device, core_ops, sites, ["doc_score_flat"],
+                                                 fwd_responses=responses)
+    launches["doc_score_flat"] = flat_launches["doc_score_flat"]
     captured.update(flat_captured)
 
-    # ---- 7b. dense-embedding LSP (recsys retrieval_cand)
-    launches["dequant_matmul"], dense_captured = dense_phase(device, core_ops)
+    # ---- 7b. the same requests under lsp2 (sbmax at phase 1 and SBavg) and bmp (sbmax over all blocks)
+    for variant, variant_sites in (("lsp2", ("phase 1", "SBavg")), ("bmp", ("bmp BoundSum",))):
+        _, by_site, variant_captured = path_phase(variant, dataclasses.replace(cfg, variant=variant), idx, batches,
+                                                  exact_ids, device, core_ops, sites, ["sbmax"])
+        for site in variant_sites:
+            check(by_site[site] > 0, f"sbmax was never launched at {site} on the {variant} path")
+            sbmax_launches.setdefault(site, by_site[site])
+        captured["sbmax"] += variant_captured["sbmax"]
+
+    # ---- 7c. dense-embedding LSP (recsys retrieval_cand)
+    launches["dequant_matmul"], dense_captured = dense_phase(device, core_ops, sites)
     captured.update(dense_captured)
 
     # ---- 8. each kernel vs its plain version at its path's shapes, timed
@@ -594,10 +649,22 @@ def smoke(device) -> int:
         log(f"  library: torch.matmul(x, W) on W unpacked to float32 beforehand (unpack excluded): {ms:.4f} ms")
         return ms
 
+    # a row per kernel over its captured calls, and for sbmax a row per call
+    # site at the site's first captured call
+    groups = []  # (kernel, call site or None, calls, launches)
+    for key in KERNELS:
+        check(captured[key], f"no captured call of {key}")
+        if key != "sbmax":
+            groups.append((key, None, captured[key], launches[key]))
+            continue
+        for site in SBMAX_SITES:
+            calls = [args for args in captured[key] if sites[args[0].data_ptr()] == site]
+            check(calls, f"no captured call of sbmax at {site}")
+            groups.append((key, site, calls[:1], sbmax_launches[site]))
+
     rows = []
-    for key, (attr, src, replaces) in KERNELS.items():
-        calls = captured[key]
-        check(calls, f"no captured call of {key}")
+    for key, site, calls, n_launches in groups:
+        attr, src, replaces = KERNELS[key]
         kernel = getattr(core_ops, attr)
         per_call = []
         for args in calls:
@@ -609,8 +676,12 @@ def smoke(device) -> int:
             plain_ms = timed_ms(lambda: plain[key](*args), flush)
             bound_ms, bound_by = bound(*work[key](*args))
             shape = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
-            log(f"{key} at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                f"({bound_by}), max_abs_err {err:.3g}")
+            log(f"{key}{f' ({site})' if site else ''} at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {bound_ms:.4f} ms ({bound_by}), max_abs_err {err:.3g}")
+            if key == "sbmax":  # the floor under it: the launch and a write of the output
+                zeros = torch.empty_like(k_out)
+                zero_ms = timed_ms(lambda: zeros.zero_(), flush)
+                log(f"  zero_() of the output alone {zero_ms:.4f} ms")
             if key in masked:
                 mask = args[-1]
                 every_ms, every_by = bound(*every_selected(work[key])(*args))
@@ -637,8 +708,9 @@ def smoke(device) -> int:
             per_call.append((ms, err, plain_ms, bound_ms, bound_by, library_ms(key, args)))
         ms, err, plain_ms, bound_ms, bound_by, lib_ms = max(per_call, key=lambda p: p[0])  # the largest call
         rows.append({"name": key, "route": "cuda", "source": src, "replaces": replaces,
-                     "launches": launches[key], "max_abs_err": max(p[1] for p in per_call), "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
+                     "launches": n_launches, "max_abs_err": max(p[1] for p in per_call), "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+                     **({"call_site": site} if site else {})})
 
     # ---- search_batch end to end (host clock; each call ends in a device->host copy)
     for _ in range(2):

@@ -206,3 +206,37 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         sbmax_kernel(_t(packed), _t(tids), _t(ws), 4, SEG_WORDS)
     assert sbmax_kernel.launches == 0
+
+
+@pytest.mark.parametrize("change", ["bits 16", "granule 0", "granule not dividing W", "ws shape", "tids rank"])
+def test_sbmax_wrapper_refuses_bad_shapes_before_launch(change):
+    """Bad bits or shapes are refused before the tensors' device is looked at,
+    so before anything is built or launched."""
+    from repro_torch.kernels.sbmax.kernel import sbmax_kernel
+
+    packed, tids, ws = (_t(a) for a in _sbmax_inputs(4, 64, 1024, 2, 8))  # W = 128 words
+    bits, granule = 4, SEG_WORDS
+    if change == "bits 16":
+        bits = 16
+    elif change == "granule 0":
+        granule = 0
+    elif change == "granule not dividing W":
+        granule = 3
+    elif change == "ws shape":
+        ws = ws[:, :-1]
+    else:
+        tids = tids[0]
+    with pytest.raises(ValueError, match="bits must be|bad shapes"):
+        sbmax_kernel(packed, tids, ws, bits, granule)
+    assert sbmax_kernel.launches == 0
+
+
+def test_sbmax_wrapper_takes_any_number_of_queries():
+    """No limit on the number of queries (the grid is 1-D): 70,000 rows pass
+    the shape checks and are refused only for lying on the CPU."""
+    from repro_torch.kernels.sbmax.kernel import sbmax_kernel
+
+    packed, _, _ = _sbmax_inputs(4, 64, 1024, 2, 8)
+    tids = torch.zeros((70_000, 3), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        sbmax_kernel(_t(packed), tids, torch.ones((70_000, 3)), 4, SEG_WORDS)

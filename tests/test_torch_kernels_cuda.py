@@ -25,6 +25,11 @@ TOL = dict(rtol=1e-5, atol=1e-4)
 DEQUANT_TOL = {"float32": dict(rtol=1e-5, atol=1e-2), "bfloat16": dict(rtol=2e-2, atol=1e-2)}
 
 SBMAX_SHAPES = [(64, 1024, 2, 8), (300, 2048, 3, 17), (17, 3072, 1, 3)]
+# (v, n, q, nq) on the card only: more term slots than one chunk staged in
+# shared memory (two chunks, the sums kept across them); rows that are no
+# multiple of the kernel's 256-word tile (at granule 2, not of 4 words either:
+# 4-byte loads); more queries than a grid's y dimension holds
+SBMAX_CUDA_SHAPES = [(300, 2048, 3, 5000), (64, 4008, 5, 40), (40, 1024, 70_000, 3)]
 BOUNDSUM_GRID = [(4, 8), (4, 16), (4, 64), (8, 4), (8, 16)]
 DOC_SCORE_SHAPES = [(32, 8, 16, 64, 2, 5), (17, 4, 24, 300, 3, 9), (8, 16, 8, 33, 1, 3)]
 DOC_SCORE_FLAT_SHAPES = [(24, 8, 40, 64, 2, 6), (9, 4, 16, 120, 3, 4)]
@@ -151,16 +156,42 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("granule", [SEG_WORDS, 2])
+@pytest.mark.parametrize("granule", [SEG_WORDS, 2, 4, 3])
 @pytest.mark.parametrize("bits", [4, 8])
-@pytest.mark.parametrize("v,n,q,nq", SBMAX_SHAPES)
+@pytest.mark.parametrize("v,n,q,nq", SBMAX_SHAPES + SBMAX_CUDA_SHAPES)
 def test_sbmax_cuda_matches_plain(cuda, bits, v, n, q, nq, granule):
+    """Granules of the superblock matrices (128), of the block matrix at
+    c = 16 (2 words at 4 bits, 4 at 8) and one that is no power of two (3
+    words: c = 24 at 4 bits, c = 12 at 8), whose outputs the kernel stores
+    bit-lane by bit-lane; where there are two queries or more, the first has
+    no term of nonzero weight and the last names one term twice."""
     from repro_torch.kernels.sbmax.kernel import sbmax_kernel
 
-    packed, tids, ws = (_t(a, cuda) for a in _sbmax_inputs(bits, v, n, q, nq, granule))
+    packed, tids, ws = _sbmax_inputs(bits, v, n, q, nq, granule)
+    if q > 1:
+        ws[0] = 0.0
+    if nq > 1:
+        tids[-1, 1] = tids[-1, 0]
+    packed, tids, ws = (_t(a, cuda) for a in (packed, tids, ws))
     got = sbmax_kernel(packed, tids, ws, bits, granule)
     want = sbmax_ref(packed, tids, ws, bits, granule)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+    if q > 1:
+        assert not got[0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,granule,n", [(4, SEG_WORDS, 8192), (4, 2, 131_072), (8, 4, 65_536)])
+def test_sbmax_cuda_repeats_bit_identically(cuda, bits, granule, n):
+    """Phase 1's width and bmp's (the block matrix at c = 16): the same
+    inputs give the same bits on every launch (each sum in one thread, in
+    term order)."""
+    from repro_torch.kernels.sbmax.kernel import sbmax_kernel
+
+    packed, tids, ws = (_t(a, cuda) for a in _sbmax_inputs(bits, 400, n, 64, 34, granule))
+    first = sbmax_kernel(packed, tids, ws, bits, granule)
+    assert all(torch.equal(first.view(torch.int32), sbmax_kernel(packed, tids, ws, bits, granule).view(torch.int32))
+               for _ in range(2))
 
 
 @pytest.mark.cuda
