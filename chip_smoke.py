@@ -14,7 +14,14 @@ corpus (vocab 30,522) and builds its index on the card with
 requests through ``impl="ref"`` and the ``exact`` backend; answers them again
 under ``doc_layout="flat"``, under lsp2 (sbmax at phase 1 and SBavg) and
 under bmp (sbmax as the BoundSum over all blocks), each kernel path against
-``impl="ref"`` on ids and both counters of every query; builds a dense index
+``impl="ref"`` on ids and both counters of every query; serves the same
+256 requests through ``Retriever.serve`` (the bucketed engine, warmed on every
+bucket) from 8 client threads against ``search_batch`` (launches counted),
+times closed loops of 1 and 64 client threads (p50, p99, batches per
+bucket), fails every third batch with a chaos fault, serves requests with
+out-of-range term ids against ``impl="ref"`` and the 256 again after them,
+repeats the requests through a result cache, saves the index to a temporary
+directory and ``swap_index``es it back from disk; builds a dense index
 of 1,000,000 synthetic 64-dim candidate embeddings on the card and answers
 256 query rows with ``retrieve_dense`` (kernel path, ``impl="ref"``,
 exhaustive); holds each kernel against its plain version again at the shapes
@@ -62,6 +69,8 @@ TOL = dict(rtol=1e-5, atol=1e-4)  # float32 sums in another order than the plain
 L2_ROW_FLOATS = 60_000  # a dense query row this long does not fit in an H100 thread block's shared memory
 QDENSE_ARG = {"doc_score_fwd": 2, "doc_score_flat": 3}  # where each doc_score kernel takes its dense query rows
 REPS = 20
+ENGINE_NQ = 64  # the serving engine's widest nq bucket
+ENGINE_TOL = dict(rtol=1e-5, atol=1e-5)  # the same kernels on batches of another shape
 # name -> (core.ops attribute, CUDA source, the TPU kernel it replaces)
 KERNELS = {
     "sbmax": ("sbmax_kernel", "src/repro_torch/csrc/sbmax.cu", "src/repro/kernels/sbmax/kernel.py:51"),
@@ -489,6 +498,184 @@ def dense_phase(device, core_ops, sites):
     return launches["dequant_matmul"], captured
 
 
+def _same_response(got, want, what):
+    """Equal ids and both counters, scores and θ within 1e-5."""
+    import numpy as np
+
+    check((got.doc_ids == want.doc_ids).all(), f"{what}: ids differ")
+    check((got.n_superblocks_visited, got.n_blocks_scored) == (want.n_superblocks_visited, want.n_blocks_scored),
+          f"{what}: counters differ")
+    check(np.allclose(got.scores, want.scores, **ENGINE_TOL), f"{what}: scores differ")
+    check(np.allclose(got.theta, want.theta, **ENGINE_TOL), f"{what}: theta differs")
+
+
+def _submit_all(engine, requests, n_threads):
+    """Every request through ``engine.search`` from ``n_threads`` client
+    threads, each waiting for one response before it sends its next request
+    (a closed loop). Returns (responses or exceptions in request order,
+    latency ms of each)."""
+    import threading
+
+    out = [None] * len(requests)
+    lat = [0.0] * len(requests)
+
+    def client(first):
+        for i in range(first, len(requests), n_threads):
+            t0 = time.perf_counter()
+            fut = engine.search(requests[i])
+            exc = fut.exception(timeout=120)
+            out[i] = exc if exc is not None else fut.result()
+            lat[i] = (time.perf_counter() - t0) * 1e3
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(n_threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+        check(not t.is_alive(), "a client thread of the engine phase hung")
+    return out, lat
+
+
+def engine_phase(retr, ref, requests, responses, device, core_ops, sites):
+    """The serving engine over the index of the main path (lsp0, fwd):
+    warm-up on every bucket, 256 requests from 8 client threads against
+    ``search_batch`` (launches counted), closed-loop latency at 1 and 64
+    client threads, the result cache, ``save`` + ``swap_index`` from disk,
+    chaos faults, and requests with out-of-range term ids. Returns the
+    launches of the correctness pass."""
+    import shutil
+    import tempfile
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import SearchRequest
+    from repro_torch.index.store import load_index, read_manifest
+    from repro_torch.serve import ChaosConfig, ChaosFault, ChaosInjector
+
+    longest = max(len(r.tids) for r in requests)
+    check(longest <= ENGINE_NQ, f"the longest query ({longest} terms) must fit the engine's nq_max {ENGINE_NQ}")
+
+    def new_engine(**knobs):
+        engine = retr.serve(max_batch=BATCH, nq_max=ENGINE_NQ, **knobs)
+        t0 = time.perf_counter()
+        engine.warmup()
+        return engine, time.perf_counter() - t0
+
+    engine, warm_s = new_engine(cache_size=0)
+    try:
+        log(f"engine: {len(engine.ladder.shapes())} buckets ({engine.ladder}), warm-up {warm_s:.2f} s")
+        got, launches, _ = counted(core_ops, lambda: _submit_all(engine, requests, 8)[0], sites)
+        log(f"engine: launches during {len(requests)} requests from 8 client threads: {launches}")
+        for key in ("sbmax", "boundsum_gather", "doc_score_fwd"):
+            check(launches[key] > 0, f"kernel {key} was never launched on the engine path")
+        for i, (g, w) in enumerate(zip(got, responses)):
+            check(not isinstance(g, BaseException), f"engine request {i} failed: {g!r}")
+            _same_response(g, w, f"engine request {i} vs search_batch")
+        log(f"engine == search_batch on ids, both counters, scores and theta (rtol/atol 1e-5) for all "
+            f"{len(requests)} requests; {engine.stats.summary()['bucket_batches']}")
+
+        # ---- closed-loop latency, 4 passes of the 256 requests
+        for n_threads in (1, BATCH):
+            load_engine, _ = new_engine(cache_size=0)
+            try:
+                lat = []
+                for _ in range(4):
+                    out, pass_lat = _submit_all(load_engine, requests, n_threads)
+                    check(not any(isinstance(o, BaseException) for o in out), "a request failed under load")
+                    lat += pass_lat
+                summ = load_engine.stats.summary()
+            finally:
+                load_engine.shutdown()
+            log(f"engine closed loop, {n_threads} client thread(s), {len(lat)} requests: p50 "
+                f"{np.percentile(lat, 50):.3f} ms, p99 {np.percentile(lat, 99):.3f} ms (client clock); engine's "
+                f"own p50 {summ['p50_ms']:.3f} ms, p99 {summ['p99_ms']:.3f} ms; batches per bucket "
+                f"{summ['bucket_batches']}")
+
+        # ---- chaos: every third batch fails; every future resolves exactly once
+        before = engine.stats.summary()["failures"]
+        engine.set_chaos(ChaosInjector(ChaosConfig(fault_every=3)))
+        resolved = Counter()
+        futs = [engine.search(r) for r in requests]
+        for f in futs:
+            f.add_done_callback(lambda fu: resolved.update([id(fu)]))
+        excs = [f.exception(timeout=120) for f in futs]
+        engine.set_chaos(None)
+        failed = sum(e is not None for e in excs)
+        check(all(e is None or isinstance(e, ChaosFault) for e in excs), "only injected faults fail requests")
+        check(len(resolved) == len(futs) and set(resolved.values()) == {1}, "every future resolves exactly once")
+        check(failed == engine.stats.summary()["failures"] - before, "failed futures == stats.failures")
+        check(0 < failed < len(futs), f"chaos failed {failed} of {len(futs)} requests")
+        for i, (f, e) in enumerate(zip(futs, excs)):
+            if e is None:
+                _same_response(f.result(), responses[i], f"request {i} beside chaos faults")
+        log(f"engine under ChaosConfig(fault_every=3): {failed} of {len(futs)} requests failed, each counted in "
+            f"stats.failures; the other {len(futs) - failed} equal search_batch")
+
+        # ---- out-of-range term ids: served, equal impl="ref", and the engine serves on
+        vocab = retr.vocab
+        bad = [SearchRequest(np.concatenate([r.tids, [vocab + 3, -1, -(vocab + 5)]]),
+                             np.concatenate([r.weights, [0.7, 0.9, 1.1]])) for r in requests[:BATCH]]
+        out, _ = _submit_all(engine, bad, 8)
+        want = ref.search_batch(bad)
+        for i, (g, w) in enumerate(zip(out, want)):
+            check(not isinstance(g, BaseException), f"out-of-range request {i} failed: {g!r}")
+            _same_response(g, w, f"out-of-range request {i} vs impl='ref'")
+        out, _ = _submit_all(engine, requests, 8)
+        for i, (g, w) in enumerate(zip(out, responses)):
+            check(not isinstance(g, BaseException), f"request {i} after the out-of-range ones failed: {g!r}")
+            _same_response(g, w, f"request {i} after the out-of-range ones")
+        torch.cuda.synchronize(device)
+        log(f"engine: {len(bad)} requests with term ids {vocab + 3}, -1, {-(vocab + 5)} served, equal to "
+            f"impl='ref'; the {len(requests)} requests after them equal search_batch (the CUDA context is intact)")
+    finally:
+        engine.shutdown()
+
+    # ---- the result cache, then swap_index from a directory the port wrote
+    cached, _ = new_engine(cache_size=1024)
+    tmp = tempfile.mkdtemp()
+    try:
+        first, _ = _submit_all(cached, requests, 8)
+        again, _ = _submit_all(cached, requests, 8)
+        for i, (a, b) in enumerate(zip(first, again)):
+            check(b.cache_hit and not a.cache_hit, f"request {i}: a repeat is a cache hit")
+            _same_response(b, a, f"cached request {i}")
+        log(f"engine cache_size=1024: the repeat of {len(requests)} requests all hits; "
+            f"hit rate {cached.stats.summary()['cache_hit_rate']:.3f}")
+        path = os.path.join(tmp, "index")
+        free_gb = shutil.disk_usage(tmp).free / 1e9
+        t0 = time.perf_counter()
+        fp = retr.save(path)
+        save_s = time.perf_counter() - t0
+        written = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        log(f"Retriever.save: {written / 1e9:.3f} GB written in {save_s:.2f} s ({free_gb:.0f} GB were free there); "
+            f"fingerprint {fp}")
+        t0 = time.perf_counter()
+        epoch = cached.swap_index(path)
+        swap_s = time.perf_counter() - t0
+        check(epoch == 1 and cached.epoch == 1, "swap_index bumps the epoch to 1")
+        after, _ = _submit_all(cached, requests, 8)
+        for i, (a, b) in enumerate(zip(first, after)):
+            check(not b.cache_hit and b.epoch == 1, f"request {i}: after the swap the cache misses, epoch 1")
+            _same_response(b, a, f"request {i} after swap_index")
+        last_swap_s = cached.stats.summary()["last_swap_ms"] / 1e3
+        log(f"swap_index from disk: {swap_s:.2f} s in all: load onto the card {swap_s - last_swap_s:.2f} s, "
+            f"backend build + warm-up of every bucket + flip {last_swap_s:.2f} s; epoch 1, every request a cache "
+            f"miss and equal to the responses before the swap")
+        t0 = time.perf_counter()
+        loaded = load_index(path, verify=True, device=device)
+        verify_s = time.perf_counter() - t0
+        check(read_manifest(path)["fingerprint"] == fp, "the manifest holds the saved fingerprint")
+        check(loaded.n_docs == retr.index.n_docs, "the verified index holds every document")
+        del loaded
+        log(f"load_index(verify=True): fingerprint {fp} re-hashed and equal, {verify_s:.2f} s")
+    finally:
+        cached.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -627,7 +814,11 @@ def smoke(device) -> int:
             sbmax_launches.setdefault(site, by_site[site])
         captured["sbmax"] += variant_captured["sbmax"]
 
-    # ---- 7c. dense-embedding LSP (recsys retrieval_cand)
+    # ---- 7c. the serving engine over the same index (lsp0, fwd)
+    engine_launches = engine_phase(retr, ref, requests, responses, device, core_ops, sites)
+    log(f"engine path launches: {engine_launches}")
+
+    # ---- 7d. dense-embedding LSP (recsys retrieval_cand)
     launches["dequant_matmul"], dense_captured = dense_phase(device, core_ops, sites)
     captured.update(dense_captured)
 

@@ -4,6 +4,9 @@
     resp = retr.search(SearchRequest(tids, ws))           # one query, typed
     resp = retr.search(SearchRequest(tids, ws, params=DynamicParams(k=5, beta=0.5)))
     resps = retr.search_batch([SearchRequest(...), ...])  # one batched call
+    retr.save("/path/to/index")                           # the lsp-index directory format
+    retr = Retriever.load("/path/to/index")               # ... written by either package
+    eng = retr.serve(max_batch=64, cache_size=1024)       # async bucketed engine
 
 The facade owns the static/dynamic boundary: ``StaticConfig`` sizes the
 traversal (the backend registry picks local or exact), the paper's
@@ -37,8 +40,10 @@ class Retriever:
     """Search facade over one ``LSPIndex`` and a registered backend."""
 
     def __init__(self, backend_callable, *, index: LSPIndex, static_cfg: StaticConfig,
-                 defaults: DynamicParams, backend_name: str):
+                 defaults: DynamicParams, backend_name: str, factory=None):
         self._backend = backend_callable
+        self._factory = factory
+        self._build_cfg = None  # the IndexBuildConfig of build(), recorded by save()
         self.index = index
         self.static_cfg = static_cfg
         self.defaults = defaults
@@ -59,13 +64,22 @@ class Retriever:
         **backend_kw,
     ) -> "Retriever":
         """Serve ``index`` (moved to ``device``, CUDA by default) through ``backend``."""
-        index = index_to(index, resolve_device(device))
+        device = resolve_device(device)
+        index = index_to(index, device)
         if static_cfg is None:
             k = params.k if params is not None else DynamicParams.k
             static_cfg = recommended_static(k, n_superblocks=index.n_superblocks)
         defaults = (params or DynamicParams.recommended(static_cfg.k_max)).validate_for(static_cfg)
-        run = get_backend(backend)(index, static_cfg, impl=impl, defaults=defaults, **backend_kw)
-        return cls(run, index=index, static_cfg=static_cfg, defaults=defaults, backend_name=backend)
+        make = get_backend(backend)
+
+        def factory(ix):
+            """The backend over a fresh index on this retriever's device, at the
+            same static config, defaults and impl: the hot-swap hook of the
+            serving engine's ``swap_index``."""
+            return make(index_to(ix, device), static_cfg, impl=impl, defaults=defaults, **backend_kw)
+
+        return cls(factory(index), index=index, static_cfg=static_cfg, defaults=defaults, backend_name=backend,
+                   factory=factory)
 
     @classmethod
     def build(
@@ -85,7 +99,33 @@ class Retriever:
 
         device = resolve_device(device)
         doc_ptr, tids, ws, vocab = _corpus_arrays(corpus)
-        index = build_index(doc_ptr, tids, ws, vocab, build_cfg or IndexBuildConfig(), device=device)
+        build_cfg = build_cfg or IndexBuildConfig()
+        index = build_index(doc_ptr, tids, ws, vocab, build_cfg, device=device)
+        retr = cls.from_index(index, static_cfg, params=params, backend=backend, impl=impl,
+                              device=device, **backend_kw)
+        retr._build_cfg = build_cfg
+        return retr
+
+    @classmethod
+    def load(
+        cls,
+        directory: str,
+        static_cfg: Optional[StaticConfig] = None,
+        *,
+        params: Optional[DynamicParams] = None,
+        backend: str = "local",
+        impl: str = "auto",
+        mmap: bool = True,
+        device=None,
+        **backend_kw,
+    ) -> "Retriever":
+        """Open a persisted single-index directory (``index.store``; one written
+        by the JAX package's ``save_index`` too) onto ``device`` (CUDA by
+        default) and serve it through ``backend``."""
+        from repro_torch.index.store import load_index
+
+        device = resolve_device(device)
+        index = load_index(directory, mmap=mmap, device=device)
         return cls.from_index(index, static_cfg, params=params, backend=backend, impl=impl,
                               device=device, **backend_kw)
 
@@ -123,6 +163,24 @@ class Retriever:
             )
             for i in range(len(requests))
         ]
+
+    def save(self, directory: str) -> str:
+        """Persist the index to ``directory`` (atomic commit) in the
+        ``lsp-index`` format, which the JAX package's ``load_index`` reads too.
+        Returns the content fingerprint."""
+        from repro_torch.index.store import save_index
+
+        return save_index(directory, self.index, self._build_cfg)
+
+    def serve(self, **engine_knobs):
+        """Wrap this retriever in the async bucketed serving engine
+        (``serve.RetrievalEngine``): batching, shape buckets, the result cache
+        (keyed on the dynamic-params bytes), failure isolation and
+        ``swap_index`` hot-swaps compose."""
+        from repro_torch.serve.engine import RetrievalEngine
+
+        return RetrievalEngine(self._backend, self.vocab, default_params=self.defaults,
+                               retriever_factory=self._factory, **engine_knobs)
 
     def n_traces(self) -> int:
         """Compiled-trace count of the backend: always 0 in the eager port."""

@@ -15,6 +15,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import NamedTuple, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 VARIANTS = ("lsp0", "lsp1", "lsp2", "sp", "bmp", "exact")
@@ -51,6 +52,11 @@ class DynamicParams:
         )
         _require(self.mu > 0.0, f"mu (max-bound overestimation divisor) must be > 0, got {self.mu!r}")
         _require(self.eta > 0.0, f"eta (block-bound overestimation divisor) must be > 0, got {self.eta!r}")
+
+    def key_bytes(self) -> bytes:
+        """Canonical byte image for cache keys: distinct points never share an
+        entry inside one (epoch, query) namespace."""
+        return np.int32(self.k).tobytes() + np.asarray([self.mu, self.eta, self.beta], np.float32).tobytes()
 
     def validate_for(self, static: "StaticConfig") -> "DynamicParams":
         """Check that a traversal sized by ``static`` can serve this point."""
@@ -98,6 +104,59 @@ def dynamic_args(dyn: Dynamic, q: int, k_max: int, device) -> DynamicArgs:
     return DynamicArgs(
         col("k", torch.int32), col("mu", torch.float32), col("eta", torch.float32), col("beta", torch.float32)
     )
+
+
+@dataclass(frozen=True)
+class DegradationRung:
+    """One point of a serving degradation ladder: a dynamic point plus an
+    optional query-term cap. Smaller μ/η/β prune more and smaller k raises θ;
+    ``nq_cap`` truncates the canonical query so it rides a smaller nq bucket."""
+
+    params: DynamicParams
+    nq_cap: int = 0  # keep only the top-nq_cap query terms by weight; 0 = no cap
+
+    def __post_init__(self) -> None:
+        _require(
+            isinstance(self.params, DynamicParams),
+            f"DegradationRung.params must be DynamicParams, got {type(self.params).__name__}",
+        )
+        _require(self.nq_cap >= 0, f"nq_cap must be >= 0 (0 = no cap), got {self.nq_cap!r}")
+
+
+def validate_degradation_ladder(rungs, static: Optional["StaticConfig"] = None) -> tuple[DegradationRung, ...]:
+    """Validate a degradation ladder and return it as ``DegradationRung``s.
+
+    ``rungs`` may mix bare ``DynamicParams`` (no term cap) and
+    ``DegradationRung``s. Rung 0 is the full-quality point; walking down must
+    never get more expensive, so k and every set ``nq_cap`` are non-increasing
+    (a rung after a capped rung is capped at or below that cap). With
+    ``static`` given, every rung must be servable by it (k <= k_max)."""
+    out = []
+    for i, r in enumerate(rungs):
+        if isinstance(r, DynamicParams):
+            r = DegradationRung(r)
+        _require(
+            isinstance(r, DegradationRung),
+            f"ladder rung {i} must be DynamicParams or DegradationRung, got {type(r).__name__}",
+        )
+        if static is not None:
+            r.params.validate_for(static)
+        out.append(r)
+    _require(bool(out), "degradation ladder must have at least one rung (the full-quality point)")
+    for i in range(1, len(out)):
+        prev, cur = out[i - 1], out[i]
+        _require(
+            cur.params.k <= prev.params.k,
+            f"ladder rung {i} raises k ({prev.params.k} -> {cur.params.k}); "
+            "degradation must walk toward cheaper points, so k is non-increasing",
+        )
+        if prev.nq_cap:
+            _require(
+                0 < cur.nq_cap <= prev.nq_cap,
+                f"ladder rung {i} relaxes nq_cap ({prev.nq_cap} -> {cur.nq_cap or 'uncapped'}); "
+                "once a rung caps query terms, every later rung must cap at or below it",
+            )
+    return tuple(out)
 
 
 @dataclass(frozen=True)

@@ -266,6 +266,7 @@ def make_dynamic_runner(fn, scfg: StaticConfig, defaults: DynamicParams, vocab: 
     run.static_cfg = scfg
     run.defaults = defaults
     run.vocab = vocab
+    run.device = device
     return run
 
 

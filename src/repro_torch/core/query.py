@@ -33,6 +33,12 @@ def canonical_query(tids, ws, nq_max: int = 0) -> tuple[np.ndarray, np.ndarray]:
     return t[order], w[order]
 
 
+def query_key(tids, ws, nq_max: int = 0) -> bytes:
+    """Hashable cache key: byte image of the canonical pruned (tids, ws) vectors."""
+    t, w = canonical_query(tids, ws, nq_max)
+    return t.tobytes() + w.tobytes()
+
+
 def make_query_batch(queries, vocab: int, nq_max: int = 0, device=None) -> QueryBatch:
     """queries: list of (tids, weights) -> a QueryBatch on ``device`` (CUDA by
     default), rows in canonical order (so β pruning keeps a prefix). nq_max=0
@@ -67,9 +73,19 @@ def prune_terms(qb: QueryBatch, beta: torch.Tensor) -> QueryBatch:
 
 def scatter_dense(qb: QueryBatch) -> torch.Tensor:
     """float32 [Q, vocab+1] dense query vectors; duplicate term ids add up and
-    the sentinel column (== vocab) stays 0."""
+    the sentinel column (== vocab) stays 0.
+
+    Out-of-range ids follow ``jnp``'s ``.at[].add``: an id in [-(vocab+1), -1]
+    wraps once (adds vocab+1), any other id outside [0, vocab] adds nothing.
+    They are masked and clamped on the device, so no index that reaches
+    ``scatter_add_`` is ever out of range (on CUDA one would be a device-side
+    assert, which leaves the process's CUDA context unusable)."""
     q = qb.tids.shape[0]
-    dense = torch.zeros((q, qb.vocab + 1), dtype=torch.float32, device=qb.tids.device)
-    dense.scatter_add_(1, qb.tids.long(), qb.ws)
+    width = qb.vocab + 1
+    tids = qb.tids.long()
+    tids = torch.where(tids < 0, tids + width, tids)
+    ok = (tids >= 0) & (tids < width)
+    dense = torch.zeros((q, width), dtype=torch.float32, device=qb.tids.device)
+    dense.scatter_add_(1, torch.where(ok, tids, qb.vocab), torch.where(ok, qb.ws, 0.0))
     dense[:, qb.vocab] = 0.0
     return dense

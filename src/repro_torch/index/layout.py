@@ -11,6 +11,11 @@ from typing import NamedTuple, Optional, Union
 
 import torch
 
+# Version of the on-disk layout (``index.store``): equal to the JAX package's,
+# whose directories this port reads and writes. A change to any type below
+# that alters a saved leaf bumps it.
+LAYOUT_VERSION = 1
+
 
 class PackedBounds(NamedTuple):
     """Term-major packed block/superblock max (or avg) term weights.
