@@ -21,7 +21,19 @@ times closed loops of 1 and 64 client threads (p50, p99, batches per
 bucket), fails every third batch with a chaos fault, serves requests with
 out-of-range term ids against ``impl="ref"`` and the 256 again after them,
 repeats the requests through a result cache, saves the index to a temporary
-directory and ``swap_index``es it back from disk; builds a dense index
+directory and ``swap_index``es it back from disk; promotes a retriever over
+the same index to a live mutable one (``recommended_static(64, ns)``, k 10),
+adds 1,024 docs and deletes 48, answers the 256 requests through the kernels
+against ``impl="ref"`` on the same mutable state (ids and both counters,
+launches counted), compacts on the card and answers them again, with recall@10
+against exact over the logical corpus, times the delta's parts (the
+traversal, ``score_delta_docs``, ``merge_mutable_topk``) and the compaction's
+stages, serves it through the engine with a background ``CompactionManager``
+(32 dominating adds each at rank 0 on the next search; a 90/10 read/write mix
+until a flip, every probe response audited by its ``delta_seq``), saves and
+reloads it in the mutable format, and promotes a retriever loaded from the
+single-index save (``corpus_from_index``); cuts the index into 3 shards,
+saves them with ``save_sharded_index`` and reads them back; builds a dense index
 of 1,000,000 synthetic 64-dim candidate embeddings on the card and answers
 256 query rows with ``retrieve_dense`` (kernel path, ``impl="ref"``,
 exhaustive); holds each kernel against its plain version again at the shapes
@@ -48,9 +60,11 @@ import dataclasses
 import hashlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -71,6 +85,11 @@ QDENSE_ARG = {"doc_score_fwd": 2, "doc_score_flat": 3}  # where each doc_score k
 REPS = 20
 ENGINE_NQ = 64  # the serving engine's widest nq bucket
 ENGINE_TOL = dict(rtol=1e-5, atol=1e-5)  # the same kernels on batches of another shape
+# mutable phase: k_max headroom over k for the tombstone overfetch (k + 48 <= 64), as
+# benchmarks/freshness_suite.py; 1,024 adds (CompactionManager's default max_delta_docs)
+MUT_K_MAX, MUT_ADDS, MUT_DELETES, N_VISIBLE = 64, 1024, 48, 32
+MIX_AFTER_FLIP, MIX_LIMIT_S = 100, 300  # reads of the 90/10 mix after its first flip; its time limit
+N_SHARDS = 3  # a ragged last shard, and an unaligned cut of the superblock matrices
 # name -> (core.ops attribute, CUDA source, the TPU kernel it replaces)
 KERNELS = {
     "sbmax": ("sbmax_kernel", "src/repro_torch/csrc/sbmax.cu", "src/repro/kernels/sbmax/kernel.py:51"),
@@ -535,15 +554,13 @@ def _submit_all(engine, requests, n_threads):
     return out, lat
 
 
-def engine_phase(retr, ref, requests, responses, device, core_ops, sites):
+def engine_phase(retr, ref, requests, responses, device, core_ops, sites, tmp):
     """The serving engine over the index of the main path (lsp0, fwd):
     warm-up on every bucket, 256 requests from 8 client threads against
     ``search_batch`` (launches counted), closed-loop latency at 1 and 64
-    client threads, the result cache, ``save`` + ``swap_index`` from disk,
-    chaos faults, and requests with out-of-range term ids. Returns the
-    launches of the correctness pass."""
-    import shutil
-    import tempfile
+    client threads, the result cache, ``save`` (into ``tmp``) + ``swap_index``
+    from disk, chaos faults, and requests with out-of-range term ids. Returns
+    (the launches of the correctness pass, the saved directory)."""
     from collections import Counter
 
     import numpy as np
@@ -633,7 +650,6 @@ def engine_phase(retr, ref, requests, responses, device, core_ops, sites):
 
     # ---- the result cache, then swap_index from a directory the port wrote
     cached, _ = new_engine(cache_size=1024)
-    tmp = tempfile.mkdtemp()
     try:
         first, _ = _submit_all(cached, requests, 8)
         again, _ = _submit_all(cached, requests, 8)
@@ -671,9 +687,460 @@ def engine_phase(retr, ref, requests, responses, device, core_ops, sites):
         log(f"load_index(verify=True): fingerprint {fp} re-hashed and equal, {verify_s:.2f} s")
     finally:
         cached.shutdown()
-        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches, path
+
+
+def _pinned_ref(retr):
+    """An adapter over ``retr``'s current mutable state whose main runtime is
+    impl="ref": both paths read the same delta, tombstones and generation."""
+    import types
+
+    from repro_torch.api import Retriever
+    from repro_torch.serve import MutableRetrieverAdapter
+
+    view = retr.index.state()
+    ref_rt = Retriever.from_index(view.main, retr.static_cfg, impl="ref", params=retr.defaults,
+                                  device=retr.device)._backend
+    pinned = types.SimpleNamespace(state=lambda: view._replace(runtime=ref_rt), vocab=retr.vocab, device=retr.device)
+    return MutableRetrieverAdapter(pinned, None)
+
+
+def _through(retr, backend, batches):
+    """``search_batch`` of every batch through ``backend`` in place of ``retr``'s own."""
+    own = retr._backend
+    retr._backend = backend
+    try:
+        return [r for b in batches for r in retr.search_batch(b)]
+    finally:
+        retr._backend = own
+
+
+def mutable_search_check(label, retr, batches, deleted, core_ops, sites):
+    """The promoted retriever's kernel path (counted) against impl="ref" on the
+    same mutable state: ids and both counters of every query, scores and θ
+    within ENGINE_TOL; no deleted id; no saturated row. Returns (responses,
+    launches)."""
+    import numpy as np
+
+    from repro_torch.core.query import make_query_batch
+
+    main = retr.index.state().main  # a compaction's generation hands sbmax matrices of its own
+    sites = {**sites, **{getattr(main, attr).packed.data_ptr(): site for site, attr in SBMAX_SITES.items()
+                         if getattr(main, attr) is not None}}
+    got, launches, by_site = counted(core_ops, lambda: [r for b in batches for r in retr.search_batch(b)], sites)
+    log(f"mutable, {label}: launches during the {len(batches)} search_batch calls: {launches}; sbmax by call site "
+        f"{by_site}")
+    for key in ("sbmax", "boundsum_gather", "doc_score_fwd"):
+        check(launches[key] > 0, f"kernel {key} was never launched on the mutable path ({label})")
+    want = _through(retr, _pinned_ref(retr), batches)
+    for i, (g, w) in enumerate(zip(got, want)):
+        _same_response(g, w, f"mutable {label}, query {i}: kernel vs impl='ref'")
+    ids = np.stack([r.doc_ids for r in got])
+    check(ids.shape == (N_QUERIES, K) and np.isfinite(np.stack([r.scores for r in got])).all(),
+          f"mutable {label}: result shape / finite scores")
+    check(not np.isin(ids, np.asarray(sorted(deleted), np.int64)).any(), f"mutable {label}: a deleted id surfaced")
+    saturated = 0
+    for b in batches:
+        qb = make_query_batch([(r.tids, r.weights) for r in b], retr.vocab, nq_max=max(len(r.tids) for r in b),
+                              device=retr.device)
+        saturated += retr._adapter(qb, [retr.defaults] * len(b)).overfetch_saturated
+    check(saturated == 0, f"mutable {label}: {saturated} rows saturated the tombstone overfetch")
+    log(f"mutable, {label}: kernel path == impl='ref' on ids and both counters of all {len(got)} queries, scores "
+        f"and theta within 1e-5; no deleted id among the results; overfetch_saturated 0; mean superblocks visited "
+        f"{np.mean([r.n_superblocks_visited for r in got]):.1f}, blocks scored "
+        f"{np.mean([r.n_blocks_scored for r in got]):.1f}")
+    return got, launches
+
+
+def mutable_split(label, retr, batch, device):
+    """search_batch of one batch on the host clock, and its three parts: the main
+    traversal (device events; host clock too), score_delta_docs and
+    merge_mutable_topk (host clock), each a median of 8."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.exact import score_delta_docs
+    from repro_torch.core.merge import merge_mutable_topk
+    from repro_torch.core.query import make_query_batch
+
+    view = retr.index.state()
+    total = statistics.median([host_ms(lambda: retr.search_batch(batch)) for _ in range(8)])
+    qb = make_query_batch([(r.tids, r.weights) for r in batch], retr.vocab, nq_max=max(len(r.tids) for r in batch),
+                          device=device)
+    n_tomb = int(view.tombstones.size)
+    eff = [dataclasses.replace(retr.defaults, k=min(retr.defaults.k + n_tomb, retr.static_cfg.k_max))] * len(batch)
+    dev_ms, main_ms = [], []
+    for _ in range(8):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = view.runtime(qb, eff)
+        end.record()
+        ids = out.doc_ids.cpu().numpy()
+        main_ms.append((time.perf_counter() - t0) * 1e3)
+        dev_ms.append(start.elapsed_time(end))
+    q_tids, q_ws = qb.tids.cpu().numpy(), qb.ws.cpu().numpy()
+    delta_ms = statistics.median([host_ms(lambda: score_delta_docs(q_tids, q_ws, view.delta_tids, view.delta_ws,
+                                                                      retr.vocab)) for _ in range(8)])
+    d_scores = score_delta_docs(q_tids, q_ws, view.delta_tids, view.delta_ws, retr.vocab)
+    d_ids = view.delta_ids.copy()
+    m_ids = np.where(ids >= 0, view.ext_ids[np.clip(ids, 0, None)], -1)
+    args = (m_ids, out.scores.cpu().numpy(), d_ids, d_scores, np.full(len(batch), retr.defaults.k),
+            retr.static_cfg.k_max, out.theta.cpu().numpy())
+    merge_ms = statistics.median([host_ms(lambda: merge_mutable_topk(*args)) for _ in range(8)])
+    log(f"mutable search_batch of {len(batch)}, {label} ({view.delta_ids.size} delta docs x "
+        f"{view.delta_tids.shape[1]} padded terms, {n_tomb} tombstones): {total:.2f} ms (host clock, median of 8); "
+        f"main traversal at k_eff {eff[0].k}: device {statistics.median(dev_ms):.3f} ms (events), host "
+        f"{statistics.median(main_ms):.2f} ms; score_delta_docs {delta_ms:.2f} ms; merge_mutable_topk "
+        f"{merge_ms:.2f} ms (host clock)")
+    profile_call(f"mutable search_batch ({len(batch)} requests, {label})", lambda: retr.search_batch(batch))
+    return total
+
+
+def _audit(responses, added_at, deleted_at):
+    """The flip audit of benchmarks/freshness_suite.py: (stale, lost) over
+    ``responses`` of the probe query, each judged at its delta_seq."""
+    stale = lost = 0
+    for resp in responses:
+        got = {int(d) for d in resp.doc_ids if d >= 0}
+        stale += sum(resp.delta_seq >= seq and doc in got for doc, seq in deleted_at.items())
+        live = [d for d, s in added_at.items()
+                if resp.delta_seq >= s and (d not in deleted_at or resp.delta_seq < deleted_at[d])]
+        lost += bool(live) and not (set(live) & got)
+    return stale, lost
+
+
+def freshness_engine(retr, requests, queries, device):
+    """``Retriever.serve`` with a CompactionManager over the promoted 1M-doc
+    retriever: reads before any write, 32 dominating adds each visible at rank
+    0 on the very next search, then a 90/10 read/write mix until a background
+    compaction has flipped, every probe response audited by its delta_seq."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import SearchRequest
+
+    engine = retr.serve(max_batch=BATCH, nq_max=ENGINE_NQ,
+                        compaction=dict(max_delta_docs=MUT_ADDS, max_tombstones=MUT_DELETES, interval_s=0.05))
+    compactor = engine._compactor
+    adapter = retr._adapter
+    try:
+        engine.warmup()
+
+        def read(req):
+            t0 = time.perf_counter()
+            resp = engine.search(req).result(timeout=600)
+            return resp, (time.perf_counter() - t0) * 1e3
+
+        before = [read(r)[1] for r in requests]
+
+        lags = []
+        for i in range(N_VISIBLE):
+            qt, qw = queries[i]
+            t0 = time.perf_counter()
+            (doc_id,), _ = engine.add_docs([(qt, np.full(qt.shape, 100.0, np.float32))])
+            resp, _ = read(SearchRequest(qt, qw))
+            lags.append((time.perf_counter() - t0) * 1e3)
+            check(int(resp.doc_ids[0]) == doc_id, f"added doc {doc_id} is not at rank 0 on the very next search")
+            engine.delete_docs([doc_id])  # restore the baseline ranking
+        log(f"mutable engine: {N_VISIBLE} dominating docs added one at a time, each at rank 0 on the very next "
+            f"search; add -> visible lag p50 {np.percentile(lags, 50):.3f} ms, p99 {np.percentile(lags, 99):.3f} "
+            f"ms, max {max(lags):.3f} ms (host clock, 1 client)")
+
+        # out-of-range term ids with a delta to score: served, equal impl="ref", and the engine serves on
+        vocab = retr.vocab
+        bad = [SearchRequest(np.concatenate([r.tids, [vocab + 3, -1, -(vocab + 5)]]),
+                             np.concatenate([r.weights, [0.7, 0.9, 1.1]])) for r in requests[:8]]
+        want = _through(retr, _pinned_ref(retr), [bad])
+        for i, (r, w) in enumerate(zip(bad, want)):
+            _same_response(read(r)[0], w, f"mutable engine, out-of-range request {i} vs impl='ref'")
+        check(engine.stats.summary()["failures"] == 0, "out-of-range requests fail nothing")
+        log(f"mutable engine: {len(bad)} requests with term ids {vocab + 3}, -1, {-(vocab + 5)} beside "
+            f"{retr._adapter.pressure()['delta_docs']} delta docs served, equal to impl='ref'")
+
+        rng = np.random.default_rng(7)
+        probe = SearchRequest(*queries[1])
+        dominating = (queries[1][0], np.full(queries[1][0].shape, 100.0, np.float32))
+        added_at, deleted_at, pool, audited = {}, {}, [], []
+        lat = {"under writes": [], "across the flip": [], "after the flip": []}
+        writes = ops = 0
+        peak_tomb = 0
+        t_mix = time.perf_counter()
+        flips = engine.stats.summary()["compactions"]
+        while True:
+            done = engine.stats.compactions - flips
+            if done >= 1 and len(lat["after the flip"]) >= MIX_AFTER_FLIP:
+                break
+            check(time.perf_counter() - t_mix < MIX_LIMIT_S, "the 90/10 mix forced no compaction flip in time")
+            ops += 1
+            if rng.random() < 0.10:
+                writes += 1
+                if pool and rng.random() < 0.4:
+                    doc = pool.pop()
+                    deleted_at[doc] = engine.delete_docs([doc])
+                else:
+                    n = int(rng.integers(3, 9))
+                    filler = (rng.choice(retr.vocab, n, replace=False).astype(np.int32),
+                              rng.uniform(0.1, 2.0, n).astype(np.float32))
+                    ids, seq = engine.add_docs([dominating, filler])
+                    added_at[ids[0]] = seq
+                    pool.append(ids[0])
+                continue
+            pending = adapter.needs_compaction(MUT_ADDS, MUT_DELETES)
+            peak_tomb = max(peak_tomb, adapter.pressure()["tombstones"])
+            arm = "after the flip" if done else ("across the flip" if pending else "under writes")
+            is_probe = rng.random() < 0.25
+            resp, ms = read(probe if is_probe else requests[int(rng.integers(0, len(requests)))])
+            lat[arm].append(ms)
+            if is_probe:
+                audited.append(resp)
+        # let a compaction still in flight land before the final audit read
+        deadline = time.perf_counter() + MIX_LIMIT_S
+        while adapter.needs_compaction(MUT_ADDS, MUT_DELETES) and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        audited.append(read(probe)[0])
+        stale, lost = _audit(audited, added_at, deleted_at)
+        s = engine.stats.summary()
+        pct = {arm: (f"p50 {np.percentile(v, 50):.3f} ms, p99 {np.percentile(v, 99):.3f} ms over {len(v)} reads"
+                     if v else "no reads") for arm, v in [("before any write", before), *lat.items()]}
+        log(f"mutable engine 90/10 mix: {ops} ops ({writes} writes) in {time.perf_counter() - t_mix:.1f} s; reads "
+            f"(host clock, 1 client): " + "; ".join(f"{a}: {p}" for a, p in pct.items()))
+        log(f"mutable engine: compactions {s['compactions']}, compaction_failures {s['compaction_failures']}, last "
+            f"compaction {s['last_compaction_ms'] / 1e3:.2f} s (build + warm-up of {len(engine.ladder.shapes())} "
+            f"buckets + flip), epoch {engine.epoch}; adds {s['adds']}, deletes {s['deletes']}; tombstones peaked at "
+            f"{peak_tomb} (k_max - k = {retr.static_cfg.k_max - K}); overfetch_saturated {s['overfetch_saturated']} "
+            f"rows; flip audit of {len(audited)} probe responses: stale {stale}, lost {lost}")
+        check(s["compactions"] >= 1 and s["compaction_failures"] == 0, "a clean background compaction flip")
+        check(stale == 0 and lost == 0, f"flip audit: {stale} stale, {lost} lost")
+        check(s["failures"] == 0, "no request failed in the mutable engine")
+    finally:
+        engine.shutdown()
+        compactor._thread.join(timeout=MIX_LIMIT_S)
+        check(not compactor._thread.is_alive(), "the compaction thread ended")
+    torch.cuda.synchronize(device)
+
+
+def mutable_phase(idx, corpus, queries, requests, device, core_ops, sites, single_dir, tmp):
+    """The live mutable index at full width over the main path's index (no
+    second build): promotion, 1,024 adds and 48 deletes, the kernel path
+    against impl="ref" with the delta and tombstones and again after a
+    synchronous compaction (recall against exact over the logical corpus),
+    freshness through the engine with background compaction, the mutable
+    save and load, and the promotion of a loaded single index (corpus_from_index).
+    Returns the launches of the first search pass."""
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import DynamicParams, Retriever, SearchRequest
+    from repro_torch.core.config import recommended_static
+    from repro_torch.data.synthetic import CorpusConfig, make_corpus
+    from repro_torch.eval.metrics import recall_vs_oracle
+    from repro_torch.index import mutable
+    from repro_torch.index.builder import IndexBuildConfig
+    from repro_torch.index.layout import index_nbytes
+
+    batches = [requests[i: i + BATCH] for i in range(0, len(requests), BATCH)]
+    scfg = recommended_static(MUT_K_MAX, idx.n_superblocks)
+    retr = Retriever.from_index(idx, scfg, params=DynamicParams(k=K), device=device)
+    retr._corpus = (corpus.doc_ptr, corpus.tids, corpus.ws)  # the source corpus, as Retriever.build keeps it
+    retr._build_cfg = IndexBuildConfig()
+    t0 = time.perf_counter()
+    retr.mutable()
+    log(f"mutable: promoted the {N_DOCS}-doc retriever in {time.perf_counter() - t0:.2f} s ({scfg}, k {K})")
+    mutable_split("empty delta", retr, batches[0], device)
+
+    # ---- writes: 1,024 docs from another seed, 48 deletes (some in the current top-10)
+    extra = make_corpus(CorpusConfig(n_docs=MUT_ADDS, vocab=VOCAB, n_topics=N_TOPICS, seed=2))
+    docs = [(extra.tids[extra.doc_ptr[i]: extra.doc_ptr[i + 1]], extra.ws[extra.doc_ptr[i]: extra.doc_ptr[i + 1]])
+            for i in range(MUT_ADDS)]
+    t0 = time.perf_counter()
+    added = retr.add(docs)
+    add_s = time.perf_counter() - t0
+    check(added == list(range(N_DOCS, N_DOCS + MUT_ADDS)), "added docs get the next external ids")
+    top = [int(r.doc_ids[0]) for r in retr.search_batch(batches[0])]
+    in_top = list(dict.fromkeys(top))[:24]
+    check(len(in_top) >= 10, "at least 10 deletes are ids in the current top-10")
+    rng = np.random.default_rng(3)
+    others = [int(i) for i in rng.choice(N_DOCS, 64, replace=False) if int(i) not in in_top][:12]
+    deleted = in_top + others + [a for a in added if a not in in_top][: MUT_DELETES - len(in_top) - len(others)]
+    check(len(set(deleted)) == MUT_DELETES, "48 distinct deletes")
+    retr.delete(deleted)
+    log(f"mutable: {MUT_ADDS} docs added in {add_s * 1e3:.1f} ms; {MUT_DELETES} deleted ({len(in_top)} of them the "
+        f"current rank-0 ids of probe queries, {len(others)} other main docs, the rest added docs); "
+        f"pressure {retr._adapter.pressure()}")
+
+    # ---- searches: kernel vs ref with the delta and tombstones
+    resp, launches = mutable_search_check("1,024 delta docs + 48 tombstones", retr, batches, deleted, core_ops, sites)
+    mutable_split("1,024 delta docs + 48 tombstones", retr, batches[0], device)
+
+    # ---- a synchronous compaction, timed by stage
+    stage = {}
+
+    def timed(name, fn):
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize(device)
+            stage[name] = stage.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return wrapper
+
+    adapter = retr._adapter
+    factory = adapter._runtime_factory
+
+    def timed_factory(ix):
+        runtime = factory(ix)
+        runtime.warmup = timed("warm-up", runtime.warmup)
+        return runtime
+
+    originals = (mutable._live_csr, mutable.build_index)
+    mutable._live_csr, mutable.build_index = timed("_live_csr", mutable._live_csr), timed("build", mutable.build_index)
+    adapter._runtime_factory = timed_factory
+    torch.cuda.reset_peak_memory_stats(device)
+    base_gb = torch.cuda.memory_allocated(device) / 1e9
+    try:
+        t0 = time.perf_counter()
+        adapter.compact(warm_shapes=[(b, q) for b in (1, 4, 16, 64) for q in (16, ENGINE_NQ)])
+        compact_s = time.perf_counter() - t0
+    finally:
+        mutable._live_csr, mutable.build_index = originals
+        adapter._runtime_factory = factory
+    view = retr.index.state()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    log(f"mutable compact(): {compact_s:.2f} s in all: _live_csr {stage['_live_csr']:.2f} s, build on the card "
+        f"{stage['build']:.2f} s, warm-up of 8 buckets {stage['warm-up']:.2f} s, backend + commit "
+        f"{compact_s - sum(stage.values()):.2f} s; peak device memory {peak_gb:.2f} GB ({base_gb:.2f} GB before); "
+        f"generation {view.generation}, {view.main.n_docs} live docs, new index {index_nbytes(view.main) / 1e9:.3f} GB")
+    check(view.generation == 1 and view.delta_ids.size == 0 and view.tombstones.size == 0, "compaction folded all")
+    check(view.main.n_docs == N_DOCS + MUT_ADDS - MUT_DELETES, "the compacted generation holds every live doc")
+    mutable_search_check("compacted", retr, batches, deleted, core_ops, sites)
+    mutable_split("compacted", retr, batches[0], device)
+    got = np.stack([r.doc_ids for b in batches for r in retr.search_batch(b)])
+    exact = Retriever.from_index(view.main, scfg, backend="exact", params=DynamicParams(k=K), device=device)
+    ex = np.stack([r.doc_ids for b in batches for r in exact.search_batch(b)])
+    ex = np.where(ex >= 0, view.ext_ids[np.clip(ex, 0, None)], -1)
+    rec = recall_vs_oracle(got, ex)
+    log(f"mutable, compacted generation: recall@10 vs exact over the logical corpus {rec:.4f}")
+    check(rec >= 0.90, f"recall@10 of the compacted generation {rec} < 0.90")
+    del exact
+
+    # ---- freshness through the engine, with background compaction
+    freshness_engine(retr, requests, queries, device)
+
+    # ---- the mutable store: save, load, resume
+    extra_ids = retr.add(docs[:8])
+    retr.delete(extra_ids[:2] + [int(retr.index.state().ext_ids[5])])
+    path = os.path.join(tmp, "mutable")
+    t0 = time.perf_counter()
+    fp = retr.save(path)
+    save_s = time.perf_counter() - t0
+    written = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+    t0 = time.perf_counter()
+    loaded = Retriever.load(path, scfg, params=DynamicParams(k=K), device=device)
+    load_s = time.perf_counter() - t0
+    check(loaded._adapter.pressure() == retr._adapter.pressure(), "the delta, tombstones and seq come back")
+    before = [r for b in batches for r in retr.search_batch(b)]
+    for i, (a, b) in enumerate(zip([r for b in batches for r in loaded.search_batch(b)], before)):
+        _same_response(a, b, f"mutable reload, query {i}")
+    next_id = loaded.add(docs[8:9])
+    check(next_id == retr.add(docs[8:9]), "the next add gets the next id after a reload")
+    log(f"mutable Retriever.save: {written / 1e9:.3f} GB in {save_s:.2f} s (fingerprint {fp}); Retriever.load "
+        f"{load_s:.2f} s (page-cached); pressure {loaded._adapter.pressure()} equal; the {len(before)} queries "
+        f"answer equal; the next add gets id {next_id[0]}")
+    del loaded
+    shutil.rmtree(path, ignore_errors=True)
+
+    # ---- promotion of a loaded single index: corpus_from_index at 1M docs
+    single = Retriever.load(single_dir, scfg, params=DynamicParams(k=K), device=device)
+    want = [r for b in batches for r in single.search_batch(b)]
+    t0 = time.perf_counter()
+    ptr, tids, ws = mutable.corpus_from_index(single.index)
+    cfi_s = time.perf_counter() - t0
+    check(np.array_equal(ptr, corpus.doc_ptr) and np.array_equal(tids, corpus.tids),
+          "corpus_from_index gives back the source corpus's docs and terms")
+    err = float(np.abs(ws - corpus.ws).max())
+    t0 = time.perf_counter()
+    single.mutable()
+    promote_s = time.perf_counter() - t0
+    for i, (a, b) in enumerate(zip([r for b in batches for r in single.search_batch(b)], want)):
+        _same_response(a, b, f"promoted single index, query {i}")
+    log(f"corpus_from_index of the loaded {N_DOCS}-doc index: {cfi_s:.2f} s (the docs and terms of the source "
+        f"corpus, weights within {err:.4f} of it: the 8-bit dequantization); mutable() of that retriever "
+        f"{promote_s:.2f} s; its {len(want)} answers unchanged")
+    del single, retr
     torch.cuda.empty_cache()
     return launches
+
+
+def sharded_store_phase(idx, device, core_ops, sites, tmp):
+    """save_sharded_index of the main path's index into 3 shards (a ragged last
+    shard, an unaligned cut of the superblock matrices), load_index_auto,
+    a second save's fingerprint, load_sharded_index(verify=True)."""
+
+    import torch
+
+    from repro_torch.distributed.retrieval import shard_index
+    from repro_torch.index.builder import IndexBuildConfig
+    from repro_torch.index.layout import index_nbytes
+    from repro_torch.index.store import ShardedIndex, load_index_auto, load_sharded_index, save_sharded_index
+
+    def cut():
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        t0 = time.perf_counter()
+        shards = shard_index(idx, N_SHARDS)
+        torch.cuda.synchronize(device)
+        return shards, time.perf_counter() - t0, base, torch.cuda.max_memory_allocated(device)
+
+    (shards, cut_s, base, peak), launches, _ = counted(core_ops, cut, sites)
+    log(f"sharded store: launches during shard_index: {launches} (the cut is plain torch)")
+    log(f"shard_index of the {N_DOCS}-doc index into {N_SHARDS}: {cut_s:.2f} s; {shards[0].n_superblocks} "
+        f"superblocks a shard ({N_SHARDS * shards[0].n_superblocks - idx.n_superblocks} padded); shards hold "
+        f"{sum(index_nbytes(s) for s in shards) / 1e9:.3f} GB; peak device memory {peak / 1e9:.2f} GB, "
+        f"{(peak - base) / 1e9:.2f} GB above the {base / 1e9:.2f} GB before")
+    paths = [os.path.join(tmp, f"sharded{i}") for i in range(2)]
+    try:
+        t0 = time.perf_counter()
+        fp = save_sharded_index(paths[0], idx, N_SHARDS, IndexBuildConfig())
+        save_s = time.perf_counter() - t0
+        written = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(paths[0]) for f in fs)
+        t0 = time.perf_counter()
+        loaded = load_index_auto(paths[0], device=device)
+        load_s = time.perf_counter() - t0
+        check(isinstance(loaded, ShardedIndex) and loaded.fingerprint == fp and len(loaded.shards) == N_SHARDS
+              and loaded.n_superblocks == idx.n_superblocks, "load_index_auto returns the saved ShardedIndex")
+
+        def same(a, b, path):
+            if isinstance(b, torch.Tensor):
+                check(a.dtype == b.dtype and torch.equal(a, b), f"shard leaf {path}")
+            elif isinstance(b, tuple):
+                for f in b._fields:
+                    same(getattr(a, f), getattr(b, f), f"{path}.{f}")
+            else:
+                check(a == b, f"shard leaf {path}")
+
+        for i, (a, b) in enumerate(zip(loaded.shards, shards)):
+            same(a, b, f"shard {i}")
+        del loaded, shards
+        t0 = time.perf_counter()
+        check(save_sharded_index(paths[1], idx, N_SHARDS, IndexBuildConfig()) == fp, "a second save, the same "
+              "global fingerprint")
+        resave_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        check(len(load_sharded_index(paths[0], verify=True, device=device)) == N_SHARDS, "verify")
+        verify_s = time.perf_counter() - t0
+        log(f"save_sharded_index ({N_SHARDS} shards): {written / 1e9:.3f} GB in {save_s:.2f} s (fingerprint {fp}); "
+            f"load_index_auto {load_s:.2f} s (page-cached), every shard equal leaf by leaf to shard_index's; a second "
+            f"save {resave_s:.2f} s, the same fingerprint; load_sharded_index(verify=True) {verify_s:.2f} s")
+    finally:
+        for p in paths:
+            shutil.rmtree(p, ignore_errors=True)
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -814,11 +1281,20 @@ def smoke(device) -> int:
             sbmax_launches.setdefault(site, by_site[site])
         captured["sbmax"] += variant_captured["sbmax"]
 
-    # ---- 7c. the serving engine over the same index (lsp0, fwd)
-    engine_launches = engine_phase(retr, ref, requests, responses, device, core_ops, sites)
-    log(f"engine path launches: {engine_launches}")
+    tmp = tempfile.mkdtemp()
+    try:
+        # ---- 7c. the serving engine over the same index (lsp0, fwd)
+        engine_launches, single_dir = engine_phase(retr, ref, requests, responses, device, core_ops, sites, tmp)
+        log(f"engine path launches: {engine_launches}")
 
-    # ---- 7d. dense-embedding LSP (recsys retrieval_cand)
+        # ---- 7d. the live mutable index over the same index, then the sharded store
+        mutable_launches = mutable_phase(idx, corpus, queries, requests, device, core_ops, sites, single_dir, tmp)
+        log(f"mutable path launches: {mutable_launches}")
+        sharded_store_phase(idx, device, core_ops, sites, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---- 7e. dense-embedding LSP (recsys retrieval_cand)
     launches["dequant_matmul"], dense_captured = dense_phase(device, core_ops, sites)
     captured.update(dense_captured)
 

@@ -7,24 +7,41 @@
     retr.save("/path/to/index")                           # the lsp-index directory format
     retr = Retriever.load("/path/to/index")               # ... written by either package
     eng = retr.serve(max_batch=64, cache_size=1024)       # async bucketed engine
+    retr.add([(tids, ws), ...]); retr.delete([doc_id])     # live mutation
+    retr.compact()                                        # fold the delta into superblocks
 
 The facade owns the static/dynamic boundary: ``StaticConfig`` sizes the
 traversal (the backend registry picks local or exact), the paper's
 ``DynamicParams.recommended(k)`` preset is the default dynamic point, and any
 request may override it. Everything runs on CUDA unless ``device="cpu"`` is
-passed.
+passed. ``mutable()`` (or the first ``add``/``delete``) promotes a retriever
+to a live-mutable one: adds land in an exactly scored delta segment, deletes
+become tombstones, ``compact()`` rebuilds the superblocks on the index's
+device, and ``save``/``load`` keep the delta and tombstones (the JAX
+package's ``lsp-mutable-index`` format).
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Sequence, Union
 
+import numpy as np
+
 from repro_torch.api.backends import get_backend
 from repro_torch.api.types import SearchRequest, SearchResponse
 from repro_torch.core.config import DynamicParams, StaticConfig, recommended_static
 from repro_torch.core.query import make_query_batch
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, to_host
 from repro_torch.index.layout import LSPIndex, index_device, index_to
+
+
+def _lead(index) -> LSPIndex:
+    """The LSPIndex whose vocab and device stand for ``index``: itself, or the
+    first shard of a sharded set (a ``ShardedIndex`` or a list of shards)."""
+    if isinstance(index, LSPIndex):
+        return index
+    shards = getattr(index, "shards", index)
+    return shards[0]
 
 
 def _corpus_arrays(corpus):
@@ -37,19 +54,24 @@ def _corpus_arrays(corpus):
 
 
 class Retriever:
-    """Search facade over one ``LSPIndex`` and a registered backend."""
+    """Search facade over an ``LSPIndex`` (a ``MutableIndex`` once promoted)
+    and a registered backend. A backend of the caller's own may serve a
+    sharded set (``index=`` a ``store.ShardedIndex`` or a list of shards);
+    such a retriever can neither be promoted nor saved in place."""
 
-    def __init__(self, backend_callable, *, index: LSPIndex, static_cfg: StaticConfig,
+    def __init__(self, backend_callable, *, index, static_cfg: StaticConfig,
                  defaults: DynamicParams, backend_name: str, factory=None):
         self._backend = backend_callable
         self._factory = factory
         self._build_cfg = None  # the IndexBuildConfig of build(), recorded by save()
+        self._corpus = None  # (doc_ptr, tids, ws) kept by build() for promotion
+        self._adapter = None  # serve.mutable.MutableRetrieverAdapter once promoted
         self.index = index
         self.static_cfg = static_cfg
         self.defaults = defaults
         self.backend_name = backend_name
-        self.vocab = index.vocab
-        self.device = index_device(index)
+        self.vocab = _lead(index).vocab
+        self.device = index_device(_lead(index))
 
     @classmethod
     def from_index(
@@ -103,6 +125,9 @@ class Retriever:
         index = build_index(doc_ptr, tids, ws, vocab, build_cfg, device=device)
         retr = cls.from_index(index, static_cfg, params=params, backend=backend, impl=impl,
                               device=device, **backend_kw)
+        # the source corpus: mutable() then starts from the exact floats, not
+        # from the dequantized forward index
+        retr._corpus = (np.asarray(doc_ptr), np.asarray(tids), np.asarray(ws))
         retr._build_cfg = build_cfg
         return retr
 
@@ -119,15 +144,41 @@ class Retriever:
         device=None,
         **backend_kw,
     ) -> "Retriever":
-        """Open a persisted single-index directory (``index.store``; one written
-        by the JAX package's ``save_index`` too) onto ``device`` (CUDA by
-        default) and serve it through ``backend``."""
-        from repro_torch.index.store import load_index
+        """Open a persisted directory (``index.store``; one written by the JAX
+        package too) onto ``device`` (CUDA by default) and serve it through
+        ``backend``. A mutable directory (``save_mutable_index``) comes back
+        promoted, with its delta segment, tombstones and id counters, so
+        ``add``/``delete``/``compact`` resume where the save left off. A
+        sharded directory raises ``NotImplementedError``: the port has no
+        sharded backend yet (``store.load_index_auto`` reads one)."""
+        from repro_torch.index.store import (
+            MUTABLE_MANIFEST_FORMAT,
+            SHARDED_MANIFEST_FORMAT,
+            SHARDED_SERVING_MISSING,
+            load_index,
+            load_mutable_index,
+            manifest_format,
+        )
 
         device = resolve_device(device)
-        index = load_index(directory, mmap=mmap, device=device)
-        return cls.from_index(index, static_cfg, params=params, backend=backend, impl=impl,
+        fmt = manifest_format(directory)
+        if fmt == SHARDED_MANIFEST_FORMAT:
+            raise NotImplementedError(f"{directory} is a sharded index set: {SHARDED_SERVING_MISSING}")
+        if fmt != MUTABLE_MANIFEST_FORMAT:
+            index = load_index(directory, mmap=mmap, device=device)
+            return cls.from_index(index, static_cfg, params=params, backend=backend, impl=impl,
+                                  device=device, **backend_kw)
+        from repro_torch.serve.mutable import MutableRetrieverAdapter
+
+        mi = load_mutable_index(directory, mmap=mmap, device=device)
+        retr = cls.from_index(mi.state().main, static_cfg, params=params, backend=backend, impl=impl,
                               device=device, **backend_kw)
+        retr._build_cfg = mi.build_cfg
+        mi.set_runtime(retr._backend)
+        retr._adapter = MutableRetrieverAdapter(mi, retr._factory)
+        retr._backend = retr._adapter
+        retr.index = mi
+        return retr
 
     def search(self, request: Union[SearchRequest, tuple]) -> SearchResponse:
         """One query; ``request.params`` overrides the default dynamic point."""
@@ -146,11 +197,12 @@ class Retriever:
         qb = make_query_batch([(r.tids, r.weights) for r in requests], self.vocab, nq_max=nq,
                               device=self.device)
         out = self._backend(qb, row_params)
-        ids = out.doc_ids.cpu().numpy()
-        scores = out.scores.cpu().numpy()
-        theta = None if out.theta is None else out.theta.cpu().numpy()
-        nsb = out.n_superblocks_visited.cpu().numpy()
-        nblk = out.n_blocks_scored.cpu().numpy()
+        ids = to_host(out.doc_ids)
+        scores = to_host(out.scores)
+        theta = None if out.theta is None else to_host(out.theta)
+        nsb = to_host(out.n_superblocks_visited)
+        nblk = to_host(out.n_blocks_scored)
+        served_seq = int(getattr(out, "delta_seq", 0) or 0)
         return [
             SearchResponse(
                 doc_ids=ids[i, : row_params[i].k].copy(),
@@ -160,27 +212,114 @@ class Retriever:
                 n_blocks_scored=int(nblk[i]),
                 params=row_params[i],
                 bucket=(len(requests), nq),
+                delta_seq=served_seq,
             )
             for i in range(len(requests))
         ]
 
-    def save(self, directory: str) -> str:
-        """Persist the index to ``directory`` (atomic commit) in the
-        ``lsp-index`` format, which the JAX package's ``load_index`` reads too.
-        Returns the content fingerprint."""
-        from repro_torch.index.store import save_index
+    # ---- live mutation ---------------------------------------------------------
 
+    def mutable(self) -> "Retriever":
+        """Promote this retriever to a live-mutable one (idempotent, in place).
+
+        The backend is wrapped in a ``serve.mutable.MutableRetrieverAdapter``
+        over a ``MutableIndex``: adds land in an exactly scored delta segment,
+        deletes become tombstones, and ``compact()`` folds both back into
+        superblocks on this retriever's device. ``build()`` keeps the source
+        corpus, so promotion is exact; a retriever over a loaded index
+        reconstructs its corpus from the forward index (dequantized, see
+        ``index.mutable.corpus_from_index``). A sharded set cannot be promoted
+        in place: its source corpus is not recoverable shard by shard."""
+        if self._adapter is not None:
+            return self
+        from repro_torch.index.builder import IndexBuildConfig
+        from repro_torch.index.mutable import MutableIndex, corpus_from_index
+        from repro_torch.serve.mutable import MutableRetrieverAdapter
+
+        main = self.index if isinstance(self.index, LSPIndex) else None
+        if self._corpus is not None:
+            doc_ptr, tids, ws = self._corpus
+        elif main is not None:
+            doc_ptr, tids, ws = corpus_from_index(main)
+        else:
+            from repro_torch.index.store import ShardedPromotionError
+
+            raise ShardedPromotionError(
+                "mutable() promotion of a sharded retriever",
+                "the source corpus is not recoverable shard-wise; Retriever.load "
+                "the single-index directory (the unsharded save) or "
+                "Retriever.build from the corpus, and promote THAT",
+            )
+        mi = MutableIndex(main, doc_ptr, tids, ws, self.vocab, self._build_cfg or IndexBuildConfig(),
+                          runtime=self._backend, device=self.device)
+        self._adapter = MutableRetrieverAdapter(mi, self._factory)
+        self._backend = self._adapter
+        self.index = mi
+        return self
+
+    def add(self, docs) -> list[int]:
+        """Add docs (each a ``(tids, weights)`` pair) to the live corpus; returns
+        their external ids. Promotes on first use. New docs are visible to every
+        later search (scored exactly from the delta segment until the next
+        compaction)."""
+        self.mutable()
+        ids, _ = self._adapter.add_docs(docs)
+        return ids
+
+    def delete(self, ids) -> None:
+        """Tombstone external doc ids: they never appear in results again.
+        Raises KeyError on unknown or already-deleted ids."""
+        self.mutable()
+        self._adapter.delete_docs(ids)
+
+    def compact(self) -> None:
+        """Fold main + delta - tombstones into a fresh superblock generation,
+        synchronously (a serving engine attaches a background
+        ``CompactionManager`` instead; see ``serve()``)."""
+        self.mutable()
+        self._adapter.compact()
+
+    def save(self, directory: str) -> str:
+        """Persist the current state to ``directory`` (atomic commit). A promoted
+        retriever writes the ``lsp-mutable-index`` format (main generation plus
+        the delta and tombstones, so ``Retriever.load`` resumes mutation where
+        this save left off); an unpromoted one writes ``lsp-index``. The JAX
+        package reads both. Returns the content fingerprint."""
+        from repro_torch.index.store import ShardedPromotionError, save_index, save_mutable_index
+
+        if self._adapter is not None:
+            return save_mutable_index(directory, self.index, self._build_cfg)
+        if not isinstance(self.index, LSPIndex):
+            raise ShardedPromotionError(
+                "Retriever.save of a sharded retriever",
+                "persist the shard set with "
+                "repro_torch.index.store.save_sharded_index(directory, index, n_shards) "
+                "from the original single LSPIndex, or save() a retriever loaded "
+                "from the unsharded directory",
+            )
         return save_index(directory, self.index, self._build_cfg)
 
-    def serve(self, **engine_knobs):
+    # ---- serving ---------------------------------------------------------------
+
+    def serve(self, *, compaction=None, **engine_knobs):
         """Wrap this retriever in the async bucketed serving engine
         (``serve.RetrievalEngine``): batching, shape buckets, the result cache
         (keyed on the dynamic-params bytes), failure isolation and
-        ``swap_index`` hot-swaps compose."""
+        ``swap_index`` hot-swaps compose.
+
+        A promoted retriever gets a background ``CompactionManager``
+        (thresholds via ``compaction=dict(max_delta_docs=..., max_tombstones=...,
+        interval_s=...)``; ``compaction=False`` serves without one), and the
+        engine takes ``add_docs``/``delete_docs``."""
         from repro_torch.serve.engine import RetrievalEngine
 
-        return RetrievalEngine(self._backend, self.vocab, default_params=self.defaults,
-                               retriever_factory=self._factory, **engine_knobs)
+        engine = RetrievalEngine(self._backend, self.vocab, default_params=self.defaults,
+                                 retriever_factory=self._factory, **engine_knobs)
+        if self._adapter is not None and compaction is not False:
+            from repro_torch.serve.mutable import CompactionManager
+
+            CompactionManager(engine, self._adapter, **(compaction or {}))
+        return engine
 
     def n_traces(self) -> int:
         """Compiled-trace count of the backend: always 0 in the eager port."""

@@ -57,7 +57,9 @@ def from_arrays(src, device=None) -> LSPIndex:
         sb_bounds=_bounds(src.sb_bounds, device),
         blk_bounds=_bounds(src.blk_bounds, device),
         sb_avg=_bounds(src.sb_avg, device),
-        docs_fwd=FwdDocs(_tensor(fwd.tids, device), _tensor(fwd.ws, device), float(fwd.scale), int(fwd.t_max)),
+        docs_fwd=None if fwd is None else FwdDocs(
+            _tensor(fwd.tids, device), _tensor(fwd.ws, device), float(fwd.scale), int(fwd.t_max),
+        ),
         docs_flat=None if flat is None else FlatInv(
             _tensor(flat.tids, device), _tensor(flat.local_dids, device), _tensor(flat.ws, device),
             _tensor(flat.block_ptr, device), int(flat.max_block_nnz), float(flat.scale),

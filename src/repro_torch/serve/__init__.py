@@ -1,6 +1,7 @@
-"""Serving layer: bucketed batching, result caching, failure isolation, and
-the SLO control plane (admission control, deadlines, priority lanes,
-adaptive degradation, fault injection)."""
+"""Serving layer: bucketed batching, result caching, failure isolation, the
+SLO control plane (admission control, deadlines, priority lanes, adaptive
+degradation, fault injection), and live index mutation (the delta-segment
+adapter and background compaction)."""
 
 from repro_torch.serve.admission import (
     AdmissionConfig,
@@ -18,6 +19,11 @@ from repro_torch.serve.errors import (
     EngineShutdown,
     ServeError,
 )
+from repro_torch.serve.mutable import (
+    CompactionManager,
+    MutableRetrievalResult,
+    MutableRetrieverAdapter,
+)
 from repro_torch.serve.slo import SLOConfig, SLOController, default_degradation_ladder
 
 __all__ = [
@@ -30,8 +36,11 @@ __all__ = [
     "ChaosFault",
     "ChaosInjector",
     "ChaosRetriever",
+    "CompactionManager",
     "DeadlineExceeded",
     "EngineShutdown",
+    "MutableRetrievalResult",
+    "MutableRetrieverAdapter",
     "QueryResultCache",
     "RetrievalEngine",
     "SLOConfig",

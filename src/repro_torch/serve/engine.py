@@ -42,8 +42,17 @@ Index lifecycle: swap_index()/swap_retriever() hot-swap the retriever with
 zero downtime: the replacement is built and warmed on the calling thread
 while the worker keeps serving on the old one, then (retriever, epoch) flip
 atomically between batches. Cache keys are ``(epoch, delta_seq,
-query-bytes)``: the epoch retires every entry of a swapped-out index; the
-delta sequence is 0 for the port's immutable retrievers.
+query-bytes)``: the epoch retires every entry of a swapped-out index, and the
+delta sequence (bumped by every mutation of a mutable retriever; 0 otherwise)
+retires entries the moment an add or delete lands. Fills are keyed on the seq
+the batch was served at (stamped on the result by the mutable adapter), so a
+result computed against a retired corpus state never resurfaces.
+
+Live mutation: when the retriever is a ``serve.mutable.MutableRetrieverAdapter``,
+``add_docs``/``delete_docs`` ingest through the engine: the mutation bumps the
+adapter's delta seq, purges stale cache entries, pokes the background
+``CompactionManager`` (if attached), and lands in the ``adds``/``deletes``
+counters and the ``delta_docs``/``tombstones``/``delta_seq`` gauges.
 
 End-to-end latency percentiles cover served requests only: rejections, sheds
 and deadline expiries have their own counters and never enter the latency
@@ -52,12 +61,12 @@ window. Queue-depth and SLO-level gauges ride ``ServeStats.summary()``.
 
 from __future__ import annotations
 
-import contextlib
 import itertools
 import os
 import queue
 import threading
 import time
+import warnings
 from collections import deque
 from concurrent.futures import Future, InvalidStateError
 from dataclasses import dataclass, field
@@ -69,7 +78,7 @@ import torch
 from repro_torch.api.types import SearchRequest, SearchResponse
 from repro_torch.core.config import DynamicParams
 from repro_torch.core.query import QueryBatch, canonical_query, make_query_batch, query_key
-from repro_torch.device import resolve_device
+from repro_torch.device import on_device, resolve_device, to_host
 from repro_torch.serve.admission import LANE_INTERACTIVE, AdmissionConfig, AdmissionController
 from repro_torch.serve.buckets import Bucket, BucketLadder
 from repro_torch.serve.cache import QueryResultCache
@@ -92,16 +101,6 @@ _OPERATIONAL_ERRORS = (RuntimeError, TimeoutError, OSError)
 def _retriever_device(retriever) -> torch.device:
     """Where ``retriever`` runs: its ``device`` attribute, CUDA if it has none."""
     return resolve_device(getattr(retriever, "device", None))
-
-
-def _on_device(device: torch.device):
-    """Make ``device`` the calling thread's current CUDA device (a no-op off CUDA)."""
-    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
-
-
-def _host(x) -> np.ndarray:
-    """A retriever output as a host numpy array."""
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 @dataclass
@@ -137,6 +136,14 @@ class ServeStats:
     swaps: int = 0
     last_swap_ms: float = 0.0
     bucket_batches: dict = field(default_factory=dict)  # (batch, nq) -> count
+    adds: int = 0  # docs ingested via add_docs
+    deletes: int = 0  # docs tombstoned via delete_docs
+    compactions: int = 0  # background generation folds completed
+    compaction_failures: int = 0  # operational compaction faults (the loop kept going)
+    last_compaction_ms: float = 0.0
+    # rows whose tombstone overfetch clipped at k_max (reported by
+    # MutableRetrieverAdapter): each may come up short of k until compaction
+    overfetch_saturated: int = 0
 
     def __post_init__(self):
         if self.latencies_ms is None:
@@ -190,6 +197,35 @@ class ServeStats:
             self.swaps += 1
             self.last_swap_ms = latency_ms
 
+    def record_adds(self, n: int) -> None:
+        with self._lock:
+            self.adds += n
+
+    def record_deletes(self, n: int) -> None:
+        with self._lock:
+            self.deletes += n
+
+    def record_compaction(self, latency_ms: float) -> None:
+        with self._lock:
+            self.compactions += 1
+            self.last_compaction_ms = latency_ms
+
+    def record_compaction_failed(self) -> None:
+        with self._lock:
+            self.compaction_failures += 1
+
+    def record_overfetch_saturated(self, n: int) -> None:
+        with self._lock:
+            self.overfetch_saturated += n
+
+    def _snapshot(self) -> np.ndarray:
+        with self._lock:
+            return np.asarray(self.latencies_ms, dtype=np.float64)
+
+    def percentile(self, p: float) -> float:
+        lat = self._snapshot()
+        return float(np.percentile(lat, p)) if lat.size else 0.0
+
     def summary(self) -> dict:
         with self._lock:
             lat = np.asarray(self.latencies_ms, dtype=np.float64)
@@ -207,6 +243,12 @@ class ServeStats:
                 "cache_hit_rate": self.cache_hits / probes if probes else 0.0,
                 "swaps": self.swaps,
                 "last_swap_ms": self.last_swap_ms,
+                "adds": self.adds,
+                "deletes": self.deletes,
+                "compactions": self.compactions,
+                "compaction_failures": self.compaction_failures,
+                "last_compaction_ms": self.last_compaction_ms,
+                "overfetch_saturated": self.overfetch_saturated,
                 "bucket_batches": {f"{b}x{q}": n for (b, q), n in sorted(self.bucket_batches.items())},
                 "mean_ms": float(lat.mean()) if lat.size else 0.0,
                 "p50_ms": float(np.percentile(lat, 50)) if lat.size else 0.0,
@@ -362,6 +404,7 @@ class RetrievalEngine:
             )
         self.stats.register_gauge("queue_depth", self._qsize)
         self.stats.register_gauge("slo_level", lambda: self.slo.level if self.slo is not None else 0)
+        self._compactor = None  # serve.mutable.CompactionManager attaches here
         # live-mutation gauges: 0 unless the retriever reports them (a mutable one)
         self.stats.register_gauge("delta_docs", lambda: self._mut_gauge("delta_docs"))
         self.stats.register_gauge("tombstones", lambda: self._mut_gauge("tombstones"))
@@ -488,6 +531,33 @@ class RetrievalEngine:
             self.slo.observe(self._qsize())  # queue growth degrades at admission speed
         return fut
 
+    def submit(self, tids: np.ndarray, ws: np.ndarray) -> Future:
+        """Deprecated raw-array entry point: Future of (ids [k], scores [k]) for
+        one sparse query at the engine's default params. A shim over
+        ``search()``, kept for the JAX package's callers."""
+        warnings.warn(
+            "RetrievalEngine.submit(tids, ws) is deprecated; use "
+            "search(SearchRequest(tids, weights)) -> Future[SearchResponse]",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        inner = self.search(SearchRequest(tids, ws))
+        out: Future = Future()
+
+        def _chain(f: Future) -> None:
+            if f.cancelled():
+                out.cancel()
+                return
+            exc = f.exception()
+            if exc is not None:
+                _try_set_exception(out, exc)
+            else:
+                r = f.result()
+                _try_set_result(out, (r.doc_ids, r.scores))
+
+        inner.add_done_callback(_chain)
+        return out
+
     def warmup(self) -> None:
         """Run every ladder bucket once, so no live request pays a first-use
         cost (on CUDA, building and loading the kernels). Uses the retriever's
@@ -497,13 +567,57 @@ class RetrievalEngine:
 
     def _warm(self, retriever) -> None:
         device = _retriever_device(retriever)
-        with _on_device(device):
+        with on_device(device):
             if hasattr(retriever, "warmup"):
                 retriever.warmup([(b.batch, b.nq) for b in self.ladder.shapes()])
                 return
             for b in self.ladder.shapes():
                 qb = make_query_batch([_EMPTY_QUERY] * b.batch, self.vocab, nq_max=b.nq, device=device)
                 retriever(qb)
+
+    # ---- live mutation ---------------------------------------------------------
+
+    def _mutable_retriever(self, op: str):
+        r = self.retriever
+        if not callable(getattr(r, "add_docs", None)):
+            raise RuntimeError(
+                f"{op} needs a mutable retriever (serve.mutable.MutableRetrieverAdapter, "
+                "e.g. via repro_torch.api.Retriever.mutable().serve()); this engine serves an "
+                "immutable one — use swap_index for whole-index replacement"
+            )
+        return r
+
+    def add_docs(self, docs) -> tuple[list[int], int]:
+        """Ingest docs (each a ``(tids, weights)`` pair) into the live index.
+
+        Returns (assigned external doc ids, new delta seq). The new docs are
+        visible to every search admitted after this returns: the seq bump
+        retires the cache namespace and stale entries are purged. Raises
+        RuntimeError when the serving retriever is immutable."""
+        r = self._mutable_retriever("add_docs")
+        ids, seq = r.add_docs(docs)
+        if self.cache is not None:
+            self.cache.purge(lambda k: k[1] != seq)
+        self.stats.record_adds(len(ids))
+        comp = self._compactor
+        if comp is not None:
+            comp.notify()
+        return ids, seq
+
+    def delete_docs(self, ids) -> int:
+        """Tombstone external doc ids in the live index; returns the new delta
+        seq. A deleted doc never appears in a search admitted after this
+        returns. KeyError (unknown or already-deleted id) reaches the caller
+        before any state changes."""
+        r = self._mutable_retriever("delete_docs")
+        seq = r.delete_docs(ids)
+        if self.cache is not None:
+            self.cache.purge(lambda k: k[1] != seq)
+        self.stats.record_deletes(len(list(ids)))
+        comp = self._compactor
+        if comp is not None:
+            comp.notify()
+        return seq
 
     # ---- index lifecycle -------------------------------------------------------
 
@@ -535,22 +649,30 @@ class RetrievalEngine:
 
     def swap_index(self, path_or_index, warm: bool = True) -> int:
         """Hot-swap to a new index: an ``LSPIndex``, or the path of a persisted
-        single-index directory (``index.store``, the JAX package's format too),
-        loaded onto the serving retriever's device. Needs
+        directory (``index.store``, the JAX package's formats too) read through
+        ``load_index_auto`` onto the serving retriever's device. Needs
         ``retriever_factory``; load, build and warm-up all happen on the calling
         thread, so a failing load raises HERE and the engine keeps serving on
-        the old retriever."""
+        the old retriever. A sharded set (a ``ShardedIndex`` or its directory)
+        raises ``NotImplementedError`` before anything flips: the port has no
+        sharded backend yet."""
+        from repro_torch.index.store import SHARDED_SERVING_MISSING, ShardedIndex, load_index_auto
+
         if self.retriever_factory is None:
             raise RuntimeError("swap_index needs retriever_factory= at engine construction")
         if isinstance(path_or_index, (str, os.PathLike)):
-            from repro_torch.index.store import load_index
-
-            path_or_index = load_index(os.fspath(path_or_index), mmap=True,
-                                       device=_retriever_device(self.retriever))
+            path_or_index = load_index_auto(os.fspath(path_or_index), mmap=True,
+                                            device=_retriever_device(self.retriever))
+        if isinstance(path_or_index, ShardedIndex):
+            raise NotImplementedError(f"swap_index of a sharded index set: {SHARDED_SERVING_MISSING}")
         return self.swap_retriever(self.retriever_factory(path_or_index), warm=warm)
 
     def shutdown(self) -> None:
-        """Idempotent. Stops the worker, then fails anything still queued."""
+        """Idempotent. Stops the compactor (if attached) and the worker, then
+        fails anything still queued."""
+        comp = self._compactor
+        if comp is not None:
+            comp.stop()
         self._stop.set()
         self._thread.join(timeout=10)
         self._drain()  # submits that raced the worker's own exit drain
@@ -643,7 +765,7 @@ class RetrievalEngine:
         resolved = [it.eff or dflt for it in items]
         try:
             device = _retriever_device(retriever)
-            with _on_device(device):
+            with on_device(device):
                 qb = make_query_batch(queries, self.vocab, nq_max=bucket.nq, device=device)
                 if self.chaos is not None:
                     self.chaos.on_batch(len(items))  # may stall or raise: same isolation
@@ -655,19 +777,22 @@ class RetrievalEngine:
                 else:
                     out = retriever(qb)
                 # RetrievalResult (or any ids/scores-leading tuple) both unpack here
-                ids = _host(out[0])
-                scores = _host(out[1])
+                ids = to_host(out[0])
+                scores = to_host(out[1])
                 theta = getattr(out, "theta", None)
                 nsb = getattr(out, "n_superblocks_visited", None)
                 nblk = getattr(out, "n_blocks_scored", None)
                 shard_cand = getattr(out, "shard_candidates", None)
-                theta = None if theta is None else _host(theta)
-                nsb = None if nsb is None else _host(nsb)
-                nblk = None if nblk is None else _host(nblk)
-                shard_cand = None if shard_cand is None else _host(shard_cand)
+                theta = None if theta is None else to_host(theta)
+                nsb = None if nsb is None else to_host(nsb)
+                nblk = None if nblk is None else to_host(nblk)
+                shard_cand = None if shard_cand is None else to_host(shard_cand)
             # the delta seq this batch was served at (0 for immutable retrievers):
             # fills key on it, so keys stay truthful
             served_seq = int(getattr(out, "delta_seq", 0) or 0)
+            # rows whose tombstone overfetch clipped at k_max (0 for immutable
+            # retrievers): a ServeStats counter, so short windows are seen
+            saturated = int(getattr(out, "overfetch_saturated", 0) or 0)
         except _OPERATIONAL_ERRORS as exc:  # backend fault: fail this batch, keep serving
             for it in items:
                 _try_set_exception(it.fut, exc)
@@ -706,6 +831,8 @@ class RetrievalEngine:
             # _response_from copies: a caller mutating ids/scores in place must
             # not corrupt what later hits are served from
             _try_set_result(it.fut, _response_from(rec, epoch=epoch, cache_hit=False, delta_seq=served_seq))
+        if saturated:
+            self.stats.record_overfetch_saturated(saturated)
         self.stats.record_batch(bucket)
         if self.slo is not None:
             self.slo.observe(self._qsize())  # served-latency view: recovery happens here

@@ -60,9 +60,9 @@ API_SURFACE = [
 ]
 SERVE_SURFACE = [
     "AdmissionConfig", "AdmissionController", "AdmissionRejected", "Bucket", "BucketLadder", "ChaosConfig",
-    "ChaosFault", "ChaosInjector", "ChaosRetriever", "DeadlineExceeded", "EngineShutdown", "QueryResultCache",
-    "RetrievalEngine", "SLOConfig", "SLOController", "ServeError", "ServeStats", "TenantQuota", "TokenBucket",
-    "default_degradation_ladder",
+    "ChaosFault", "ChaosInjector", "ChaosRetriever", "CompactionManager", "DeadlineExceeded", "EngineShutdown",
+    "MutableRetrievalResult", "MutableRetrieverAdapter", "QueryResultCache", "RetrievalEngine", "SLOConfig",
+    "SLOController", "ServeError", "ServeStats", "TenantQuota", "TokenBucket", "default_degradation_ladder",
 ]
 
 

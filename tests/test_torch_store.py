@@ -18,7 +18,7 @@ from repro_torch.ckpt.checkpoint import COMMIT_MARKER
 from repro_torch.index import _msgpack, store
 from repro_torch.index.builder import IndexBuildConfig
 from repro_torch.index.convert import from_arrays
-from repro_torch.index.layout import LAYOUT_VERSION
+from repro_torch.index.layout import LAYOUT_VERSION, LSPIndex
 
 BUILD = dict(b=8, c=8, kmeans_iters=3)
 
@@ -181,12 +181,194 @@ def test_expected_fingerprint_mismatch_raises(saved):
 
 
 def test_a_sharded_directory_raises_and_names_what_is_missing(tiny_index, tmp_path):
+    """The store reads a sharded set now (``load_index_auto``); ``load_index``
+    refuses one as JAX's does, and serving one waits for a sharded backend."""
     directory = str(tmp_path / "sharded")
     jax_store.save_sharded_index(directory, tiny_index, 2)
-    with pytest.raises(jax_store.IndexStoreError):
+    with pytest.raises(jax_store.IndexStoreError, match="not an index manifest") as jax_err:
         jax_store.load_index(directory)
-    with pytest.raises(store.IndexStoreError, match="queue 1 item 2"):
+    with pytest.raises(store.IndexStoreError, match="not an index manifest") as port_err:
         store.load_index(directory, device="cpu")
-    with pytest.raises(store.IndexStoreError, match="queue 1 item 2"):
+    assert str(port_err.value) == str(jax_err.value)
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
         Retriever.load(directory, device="cpu")
+    retr = Retriever.from_index(from_arrays(tiny_index, "cpu"), StaticConfig(gamma=8, gamma0=2), device="cpu")
+    engine = retr.serve(max_batch=4)
+    try:
+        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+            engine.swap_index(directory)
+        assert engine.epoch == 0 and engine.retriever is retr._backend  # nothing flipped
+        request = SearchRequest(np.array([1, 2, 3], np.int32), np.ones(3, np.float32))
+        got = engine.search(request).result(timeout=60)
+        np.testing.assert_array_equal(got.doc_ids, retr.search(request).doc_ids)  # it serves on
+    finally:
+        engine.shutdown()
     assert store.manifest_format(directory) == jax_store.SHARDED_MANIFEST_FORMAT
+
+
+# ---- the sharded format ---------------------------------------------------------------
+
+
+def _tree_files(directory):
+    """Every file under ``directory`` by relative path, with its bytes."""
+    out = {}
+    for root, _, names in os.walk(directory):
+        for name in names:
+            path = os.path.join(root, name)
+            out[os.path.relpath(path, directory)] = open(path, "rb").read()
+    return out
+
+
+@pytest.fixture(scope="module", params=[2, 3], ids=["2-shards", "3-shards-ragged"])
+def sharded(request, tiny_index, tmp_path_factory):
+    """The tiny index saved as a sharded set by JAX and by the port: 32
+    superblocks in 2 shards of 16, or 3 of 11 with a ragged last shard."""
+    n = request.param
+    root = tmp_path_factory.mktemp(f"sharded{n}")
+    jax_dir, port_dir = str(root / "jax"), str(root / "port")
+    jax_fp = jax_store.save_sharded_index(jax_dir, tiny_index, n, JaxIndexBuildConfig(**BUILD))
+    port_fp = store.save_sharded_index(port_dir, from_arrays(tiny_index, "cpu"), n, IndexBuildConfig(**BUILD))
+    return n, jax_dir, jax_fp, port_dir, port_fp
+
+
+def test_port_saved_sharded_set_is_byte_equal_and_loads_into_jax(sharded, tiny_index):
+    n, jax_dir, jax_fp, port_dir, port_fp = sharded
+    assert port_fp == jax_fp
+    assert _tree_files(port_dir) == _tree_files(jax_dir)  # both manifests, every shard's files
+    assert jax_store.read_sharded_manifest(port_dir)["fingerprint"] == port_fp
+    loaded = jax_store.load_index_auto(port_dir, mmap=False, verify=True)
+    assert isinstance(loaded, jax_store.ShardedIndex) and len(loaded.shards) == n
+    assert loaded.n_superblocks == tiny_index.n_superblocks
+
+
+def test_jax_saved_sharded_set_loads_into_the_port(sharded):
+    n, jax_dir, jax_fp, _, _ = sharded
+    got = store.load_index_auto(jax_dir, verify=True, device="cpu")
+    assert isinstance(got, store.ShardedIndex) and got.fingerprint == jax_fp and len(got.shards) == n
+    want = [from_arrays(s, "cpu") for s in jax_store.load_sharded_index(jax_dir)]
+    for g, w in zip(got.shards, want):
+        _assert_leaves_equal(g, w)
+    for g, w in zip(store.load_sharded_index(jax_dir, mmap=False, verify=True, device="cpu"), want):
+        _assert_leaves_equal(g, w)
+    assert got.n_superblocks == store.read_sharded_manifest(jax_dir)["n_superblocks"]
+
+
+@pytest.fixture(scope="module", params=[
+    dict(b=8, c=8, kmeans_iters=1),
+    dict(b=4, c=16, kmeans_iters=1, bound_bits=8, quant_granularity="global", doc_bits=16),
+], ids=["4bit-row", "8bit-global-16bit-docs"])
+def jax_built(request, tiny_corpus):
+    from repro.index.builder import build_index as jax_build_index
+
+    _, corpus, _ = tiny_corpus
+    return jax_build_index(corpus.doc_ptr, corpus.tids, corpus.ws, corpus.vocab, JaxIndexBuildConfig(**request.param))
+
+
+@pytest.mark.parametrize("n_shards", [1, 2, 3, 5])
+def test_shard_index_is_byte_equal_to_jax(jax_built, n_shards):
+    """Both cuts of the packed bounds: words sliced where a shard starts and
+    ends on a granule (the block matrix), granules unpacked where it does
+    not (the superblock matrices); the last shard ragged where NS % P != 0."""
+    from repro.distributed.retrieval import shard_index as jax_shard_index
+    from repro_torch.distributed.retrieval import shard_index
+
+    jax_idx = jax_built
+    got = shard_index(from_arrays(jax_idx, "cpu"), n_shards)
+    want = jax_shard_index(jax_idx, n_shards)
+    assert len(got) == len(want) == n_shards
+    for g, w in zip(got, want):
+        _assert_leaves_equal(g, from_arrays(w, "cpu"))
+
+
+def test_a_tampered_shard_fails_verify(sharded, tmp_path):
+    import shutil
+
+    _, jax_dir, _, _, _ = sharded
+    directory = str(tmp_path / "copy")
+    shutil.copytree(jax_dir, directory)
+    _resave_leaf(os.path.join(directory, "shard-00001"), "doc_remap.npy", lambda a: a ^ 1)
+    store.load_index_auto(directory, device="cpu")  # mmap fast path: no re-hash
+    with pytest.raises(store.IndexStoreError, match="content hash"):
+        store.load_index_auto(directory, verify=True, device="cpu")
+
+
+# ---- the mutable format ---------------------------------------------------------------
+
+
+def _mutate(mi, vocab):
+    """The same mutation log on a MutableIndex of either package."""
+    rng = np.random.default_rng(4)
+    docs = [(rng.choice(vocab, 6, replace=False), rng.random(6, dtype=np.float32)) for _ in range(5)]
+    docs.append((np.zeros(0, np.int32), np.zeros(0, np.float32)))  # an empty doc
+    ids, _ = mi.add_docs(docs)
+    mi.delete_docs([3, 100, ids[1]])
+    return mi
+
+
+@pytest.fixture(scope="module")
+def mutable_saved(tiny_corpus, tiny_index, tmp_path_factory):
+    """The tiny index promoted and mutated alike in both packages, saved by each."""
+    from repro.index.mutable import MutableIndex as JaxMutableIndex
+    from repro_torch.index.mutable import MutableIndex
+
+    _, corpus, _ = tiny_corpus
+    csr = (corpus.doc_ptr, corpus.tids, corpus.ws, corpus.vocab)
+    jax_mi = _mutate(JaxMutableIndex(tiny_index, *csr, JaxIndexBuildConfig(**BUILD)), corpus.vocab)
+    port_mi = _mutate(MutableIndex(from_arrays(tiny_index, "cpu"), *csr, IndexBuildConfig(**BUILD)), corpus.vocab)
+    root = tmp_path_factory.mktemp("mutable")
+    jax_dir, port_dir = str(root / "jax"), str(root / "port")
+    jax_fp = jax_store.save_mutable_index(jax_dir, jax_mi)
+    port_fp = store.save_mutable_index(port_dir, port_mi)
+    return jax_dir, jax_fp, jax_mi, port_dir, port_fp, port_mi
+
+
+def test_port_saved_mutable_index_is_byte_equal_and_loads_into_jax(mutable_saved):
+    jax_dir, jax_fp, jax_mi, port_dir, port_fp, _ = mutable_saved
+    assert port_fp == jax_fp
+    assert _files(port_dir) == _files(jax_dir)
+    loaded = jax_store.load_mutable_index(port_dir, mmap=False, verify=True)
+    assert loaded.pressure() == jax_mi.pressure()
+    assert jax_store.read_mutable_manifest(port_dir)["meta"] == jax_store.read_mutable_manifest(jax_dir)["meta"]
+
+
+def test_jax_saved_mutable_index_loads_into_the_port(mutable_saved):
+    jax_dir, _, jax_mi, _, _, port_mi = mutable_saved
+    got = store.load_mutable_index(jax_dir, verify=True, device="cpu")
+    _assert_leaves_equal(got.state().main, from_arrays(jax_store.load_mutable_index(jax_dir).state().main, "cpu"))
+    assert got.pressure() == jax_mi.pressure() == port_mi.pressure()
+    want, have = jax_mi.persistable_state(), got.persistable_state()
+    assert want["meta"] == have["meta"] and want["arrays"].keys() == have["arrays"].keys()
+    for name, arr in want["arrays"].items():
+        assert have["arrays"][name].dtype == arr.dtype and np.array_equal(have["arrays"][name], arr), name
+    assert got.build_cfg == IndexBuildConfig(**BUILD)
+    assert got.add_docs([(np.array([1], np.int32), np.ones(1, np.float32))])[0] == jax_mi.add_docs(
+        [(np.array([1], np.int32), np.ones(1, np.float32))])[0]  # the next id, in both
+
+
+@pytest.mark.parametrize("leaf", ["state.tombstones.npy", "state.delta_ws.npy", "main.doc_remap.npy"])
+def test_a_tampered_mutable_leaf_fails_verify(mutable_saved, tmp_path, leaf):
+    import shutil
+
+    directory = str(tmp_path / "copy")
+    shutil.copytree(mutable_saved[0], directory)
+    _resave_leaf(directory, leaf, lambda a: a + 1)
+    with pytest.raises(jax_store.IndexStoreError, match="content hash"):
+        jax_store.load_mutable_index(directory, verify=True)
+    with pytest.raises(store.IndexStoreError, match="content hash"):
+        store.load_mutable_index(directory, verify=True, device="cpu")
+
+
+def test_load_index_auto_tells_the_formats_apart(saved, mutable_saved, tiny_index, tmp_path):
+    jax_dir = saved[0]
+    assert isinstance(store.load_index_auto(jax_dir, device="cpu"), LSPIndex)
+    sharded_dir = str(tmp_path / "sharded")
+    store.save_sharded_index(sharded_dir, from_arrays(tiny_index, "cpu"), 2)
+    assert isinstance(store.load_index_auto(sharded_dir, device="cpu"), store.ShardedIndex)
+    with pytest.raises(jax_store.IndexStoreError, match="load_mutable_index") as jax_err:
+        jax_store.load_index_auto(mutable_saved[3])
+    with pytest.raises(store.IndexStoreError, match="load_mutable_index") as port_err:
+        store.load_index_auto(mutable_saved[3], device="cpu")
+    assert str(port_err.value) == str(jax_err.value)
+    for read in (store.read_mutable_manifest, store.read_sharded_manifest):
+        with pytest.raises(store.IndexStoreError, match="not a"):
+            read(jax_dir)
