@@ -33,10 +33,19 @@ stages, serves it through the engine with a background ``CompactionManager``
 until a flip, every probe response audited by its ``delta_seq``), saves and
 reloads it in the mutable format, and promotes a retriever loaded from the
 single-index save (``corpus_from_index``); cuts the index into 3 shards,
-saves them with ``save_sharded_index`` and reads them back; builds a dense index
+saves them with ``save_sharded_index`` and reads them back; serves those 3
+shards through the host-loop ``sharded`` backend (the 256 requests equal to
+the local responses on ids, θ and both counters, and to its own
+``impl="ref"``; sbmax, boundsum_gather and doc_score_fwd launching on every
+shard), under lsp2 and a binding block budget against local, through the
+engine over ``Retriever.load`` of the saved set with ``swap_index`` to the
+single directory, back and again under client traffic, and through 3
+spawned gloo ranks on the card, each loading only its shard, against the
+host loop; builds a dense index
 of 1,000,000 synthetic 64-dim candidate embeddings on the card and answers
 256 query rows with ``retrieve_dense`` (kernel path, ``impl="ref"``,
-exhaustive); holds each kernel against its plain version again at the shapes
+exhaustive) and through the dense index cut into 4 shards (recall@10
+against single-device, dequant_matmul on every shard); holds each kernel against its plain version again at the shapes
 its path gave it and times both with CUDA events (median of 20, L2 flushed):
 sbmax at each of its call sites (phase 1, SBavg, bmp's BoundSum; a row each,
 with a ``zero_()`` of its output as the floor), doc_score_fwd and doc_score_flat at the block ids and mask of round 0
@@ -49,7 +58,8 @@ padded past what shared memory holds, so every lookup goes to L2; times
 ``search_batch`` and profiles one call of each path (device kernels, device
 idle share). Each path's launch counts are set to 0 just before it
 runs and read just after. The second-to-last line is a JSON object of
-per-kernel numbers, the last ``{"ok": true, ...}``.
+per-kernel numbers (with a ``"path": "sharded"`` row for each kernel of the
+sharded paths, over its per-shard launches), the last ``{"ok": true, ...}``.
 Any failed check raises and exits non-zero; without a CUDA device it exits 1
 before printing any result. It imports neither JAX nor the JAX package.
 """
@@ -90,6 +100,11 @@ ENGINE_TOL = dict(rtol=1e-5, atol=1e-5)  # the same kernels on batches of anothe
 MUT_K_MAX, MUT_ADDS, MUT_DELETES, N_VISIBLE = 64, 1024, 48, 32
 MIX_AFTER_FLIP, MIX_LIMIT_S = 100, 300  # reads of the 90/10 mix after its first flip; its time limit
 N_SHARDS = 3  # a ragged last shard, and an unaligned cut of the superblock matrices
+# a block budget below lsp0's budget*c = 4,000 blocks, at an η that lets the θ/η cut
+# keep more blocks than that a query, so the cross-shard cut removes blocks
+SHARDED_BLOCK_BUDGET, SHARDED_BUDGET_ETA = 64, 4.0
+DENSE_SHARDS = 4  # the dense index's 984 superblocks cut evenly
+RANK_TIMEOUT_S = 300  # a process-group rank that sends nothing in this time fails the run
 # name -> (core.ops attribute, CUDA source, the TPU kernel it replaces)
 KERNELS = {
     "sbmax": ("sbmax_kernel", "src/repro_torch/csrc/sbmax.cu", "src/repro/kernels/sbmax/kernel.py:51"),
@@ -514,7 +529,54 @@ def dense_phase(device, core_ops, sites):
         f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
     profile_call(f"retrieve_dense ({BATCH} rows)", lambda: retrieve_dense(didx, calls[0], cfg)[0].cpu())
     profile_call(f"retrieve_dense_exact ({BATCH} rows)", lambda: retrieve_dense_exact(didx, calls[0], K)[0].cpu())
-    return launches["dequant_matmul"], captured
+    sharded = sharded_dense(didx, cfg, calls, ids, exact_ids, core_ops, sites)
+    return launches["dequant_matmul"], captured, sharded
+
+
+def sharded_dense(didx, cfg, calls, single_ids, exact_ids, core_ops, sites):
+    """The dense index cut into DENSE_SHARDS shards, through the host loop of
+    ``make_sharded_dense_retriever`` at the single-device config (each shard
+    takes its own top-γ): dequant_matmul on every shard, recall@10 against
+    the single-device kernel path (at least 0.9, the JAX package's bar) and
+    against the exhaustive oracle. Returns (launches, the dequant_matmul
+    calls of the first call)."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.lsp_dense import make_sharded_dense_retriever, retrieve_dense, shard_dense_index
+    from repro_torch.eval.metrics import recall_vs_oracle
+
+    t0 = time.perf_counter()
+    shards = shard_dense_index(didx, DENSE_SHARDS)
+    torch.cuda.synchronize()
+    cut_s = time.perf_counter() - t0
+    owner = {t.data_ptr(): p for p, s in enumerate(shards) for t in (s.sb.max_packed, s.sb.min_packed)}
+    run = make_sharded_dense_retriever(shards, cfg)
+    run(calls[0])
+    holder = {}
+
+    def all_calls():
+        out = []
+        holder["calls"] = capture(core_ops, ["dequant_matmul"], lambda: out.extend(run(q)[0].cpu().numpy()
+                                                                                  for q in calls))
+        return np.concatenate(out)
+
+    ids, launches, _ = counted(core_ops, all_calls, sites)
+    by_shard = Counter(owner[args[1].data_ptr()] for args in holder["calls"]["dequant_matmul"])
+    check(sorted(by_shard) == list(range(DENSE_SHARDS)), f"dequant_matmul on every dense shard: {dict(by_shard)}")
+    check(ids.shape == single_ids.shape and ((ids >= 0) & (ids < N_CANDS)).all(), "sharded dense ids")
+    rec = recall_vs_oracle(ids, single_ids)
+    log(f"sharded dense ({DENSE_SHARDS} shards of {shards[0].n_superblocks} superblocks, cut in {cut_s:.2f} s): "
+        f"launches during the 4 calls {launches}, dequant_matmul by shard {dict(sorted(by_shard.items()))}; "
+        f"recall@10 vs the single-device kernel path {rec:.4f}, vs exhaustive {recall_vs_oracle(ids, exact_ids):.4f}")
+    check(rec >= 0.9, f"recall@10 of sharded dense against single-device {rec} < 0.9")
+    single_ms = [host_ms(lambda: retrieve_dense(didx, q, cfg)[0].cpu()) for q in calls]
+    sharded_ms = [host_ms(lambda: run(q)[0].cpu()) for q in calls]
+    log(f"dense of {BATCH} rows: sharded host loop median {statistics.median(sharded_ms):.2f} ms, single "
+        f"{statistics.median(single_ms):.2f} ms")
+    return launches["dequant_matmul"], holder["calls"]["dequant_matmul"][: 2 * DENSE_SHARDS]
 
 
 def _same_response(got, want, what):
@@ -1079,7 +1141,8 @@ def mutable_phase(idx, corpus, queries, requests, device, core_ops, sites, singl
 def sharded_store_phase(idx, device, core_ops, sites, tmp):
     """save_sharded_index of the main path's index into 3 shards (a ragged last
     shard, an unaligned cut of the superblock matrices), load_index_auto,
-    a second save's fingerprint, load_sharded_index(verify=True)."""
+    a second save's fingerprint, load_sharded_index(verify=True). Returns
+    (shard_index's shards, the saved directory) for the sharded phase."""
 
     import torch
 
@@ -1126,7 +1189,7 @@ def sharded_store_phase(idx, device, core_ops, sites, tmp):
 
         for i, (a, b) in enumerate(zip(loaded.shards, shards)):
             same(a, b, f"shard {i}")
-        del loaded, shards
+        del loaded
         t0 = time.perf_counter()
         check(save_sharded_index(paths[1], idx, N_SHARDS, IndexBuildConfig()) == fp, "a second save, the same "
               "global fingerprint")
@@ -1138,9 +1201,296 @@ def sharded_store_phase(idx, device, core_ops, sites, tmp):
             f"load_index_auto {load_s:.2f} s (page-cached), every shard equal leaf by leaf to shard_index's; a second "
             f"save {resave_s:.2f} s, the same fingerprint; load_sharded_index(verify=True) {verify_s:.2f} s")
     finally:
-        for p in paths:
-            shutil.rmtree(p, ignore_errors=True)
+        shutil.rmtree(paths[1], ignore_errors=True)
     torch.cuda.empty_cache()
+    return shards, paths[0]
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank, world, port, sharded_dir, scfg, defaults, queries, device, results):
+    """One rank of the sharded phase's process group (gloo; every rank on
+    ``device``, the one card): loads only its own shard from ``sharded_dir``,
+    answers the batches of ``queries`` with the others, and sends back every
+    result field, its launches and its times."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import ops as core_ops
+    from repro_torch.core.query import make_query_batch
+    from repro_torch.distributed.sharded import ShardedRetriever
+    from repro_torch.index.layout import index_nbytes
+
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world, rank=rank)
+    try:
+        t0 = time.perf_counter()
+        retr = ShardedRetriever.from_dir(sharded_dir, scfg, group=dist.group.WORLD, defaults=defaults, device=device)
+        load_s = time.perf_counter() - t0
+        qbs = [make_query_batch(queries[i: i + BATCH], retr.vocab, nq_max=max(len(t) for t, _ in queries[i: i + BATCH]),
+                                device=device) for i in range(0, len(queries), BATCH)]
+        retr(qbs[0])  # the first call loads the kernels
+        fns = {name: getattr(core_ops, attr) for name, (attr, _, _) in KERNELS.items()}
+        for fn in fns.values():
+            fn.launches = 0
+        outs, batch_ms = [], []
+        for qb in qbs:
+            t0 = time.perf_counter()
+            out = retr(qb)
+            outs.append({f: getattr(out, f).cpu().numpy() for f in out._fields})
+            batch_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = {name: fn.launches for name, fn in fns.items()}
+        results.put((rank, dict(outs=outs, launches=launches, load_s=load_s, batch_ms=batch_ms,
+                                shard_gb=index_nbytes(retr.shards[rank]) / 1e9),
+                     None))
+    except BaseException:  # sent to the parent, then raised
+        results.put((rank, None, traceback.format_exc()))
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def process_group_run(sharded_dir, scfg, defaults, requests, device):
+    """The process-group transport: N_SHARDS spawned ranks over gloo sharing
+    the card, each loading only its own shard; joined with a timeout, a hung
+    or failed rank fails the run. Returns {rank: what it sent}."""
+    import multiprocessing as mp
+    import queue
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = _free_port()
+    queries = [(r.tids, r.weights) for r in requests]
+    procs = [ctx.Process(target=_rank_main, args=(r, N_SHARDS, port, sharded_dir, scfg, defaults, queries, device,
+                                                  results)) for r in range(N_SHARDS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got, errors = {}, []
+    try:
+        for _ in procs:  # drain the queue before joining
+            try:
+                rank, res, err = results.get(timeout=RANK_TIMEOUT_S)
+            except queue.Empty:
+                errors.append(f"a rank sent nothing within {RANK_TIMEOUT_S} s")
+                break
+            if err is not None:
+                errors.append(f"rank {rank} failed:\n{err}")
+                break
+            got[rank] = res
+        for p in procs:
+            p.join(timeout=RANK_TIMEOUT_S if not errors else 5)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+    check(not errors, "; ".join(errors))
+    check(all(p.exitcode == 0 for p in procs), f"rank exit codes {[p.exitcode for p in procs]}")
+    log(f"process group: {N_SHARDS} ranks spawned, joined and exited 0 in {time.perf_counter() - t0:.1f} s")
+    return got
+
+
+def _same_ids_theta_counters(got, want, what):
+    """Equal ids, θ and both counters; the largest score difference."""
+    import numpy as np
+
+    check((got.doc_ids == want.doc_ids).all(), f"{what}: ids differ")
+    check(got.theta == want.theta, f"{what}: theta differs ({got.theta} vs {want.theta})")
+    check((got.n_superblocks_visited, got.n_blocks_scored) == (want.n_superblocks_visited, want.n_blocks_scored),
+          f"{what}: counters differ")
+    return float(np.abs(got.scores - want.scores).max())
+
+
+def sharded_phase(retr, batches, responses, shards, sharded_dir, single_dir, device, core_ops, sites):
+    """Sharded serving over the main path's index, the sharded-store phase's
+    3-shard cut and its directory (nothing is built again): the host-loop
+    sharded backend on the default lsp0 point against the fwd phase's local
+    responses and against its own impl="ref" (each kernel launching on every
+    shard); lsp2 and a binding block budget against local at the same config;
+    ``Retriever.load`` of the directory through the engine, with
+    ``swap_index`` to the single directory, back and again under client
+    traffic; the process-group transport (3 gloo ranks on the card) against
+    the host loop. Returns (launches of the lsp0 run, the kernel calls of its
+    first batch by kernel)."""
+    import dataclasses
+    import threading
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import Retriever
+    from repro_torch.core.query import make_query_batch
+    from repro_torch.distributed.sharded import make_plan
+    from repro_torch.index.layout import index_nbytes
+
+    idx, cfg = retr.index, retr.static_cfg
+    requests = [r for b in batches for r in b]
+    sites = {**sites, **{getattr(s, attr).packed.data_ptr(): site for s in shards for site, attr in SBMAX_SITES.items()
+                         if attr != "blk_bounds"}}
+    owner = {t.data_ptr(): p for p, s in enumerate(shards)
+             for t in (s.sb_bounds.packed, s.sb_avg.packed, s.blk_bounds.packed, s.docs_fwdq.tids)}
+    fwd_kernels = ["sbmax", "boundsum_gather", "doc_score_fwd"]
+    sharded = Retriever.from_index(shards, cfg, ns_true=idx.n_superblocks, device=device)
+    check(sharded.backend_name == "sharded", "a shard list resolves to the sharded backend")
+    log(f"sharded: {N_SHARDS} shards of {shards[0].n_superblocks} superblocks resident, "
+        f"{sum(index_nbytes(s) for s in shards) / 1e9:.3f} GB (the unsharded index {index_nbytes(idx) / 1e9:.3f} GB); "
+        f"device memory allocated {torch.cuda.memory_allocated(device) / 1e9:.2f} GB")
+
+    # ---- 1. host loop, lsp0, the 256 requests: every kernel on every shard
+    sharded.search_batch(batches[0])
+    holder = {}
+
+    def run():
+        out = []
+        holder["calls"] = capture(core_ops, fwd_kernels,
+                                  lambda: out.extend(r for b in batches for r in sharded.search_batch(b)))
+        return out
+
+    got, launches, by_site = counted(core_ops, run, sites)
+    by_shard = {k: Counter(owner[args[0].data_ptr()] for args in calls) for k, calls in holder["calls"].items()}
+    log(f"sharded lsp0: launches during the 4 search_batch calls: {launches}; sbmax by call site {by_site}; "
+        f"by shard {({k: dict(sorted(v.items())) for k, v in by_shard.items()})}")
+    for key, per in (("sbmax", 1), ("boundsum_gather", 1), ("doc_score_fwd", 2)):
+        check(launches[key] == len(batches) * N_SHARDS * per, f"sharded {key}: {launches[key]} launches")
+        check(all(by_shard[key][p] == len(batches) * per for p in range(N_SHARDS)),
+              f"sharded {key} launched {per} a batch on every shard")
+    diff = max(_same_ids_theta_counters(g, w, f"sharded request {i} vs local") for i, (g, w)
+               in enumerate(zip(got, responses)))
+    ref = Retriever.from_index(shards, cfg, ns_true=idx.n_superblocks, impl="ref", device=device)
+    ref_got = [r for b in batches for r in ref.search_batch(b)]
+    for i, (g, w) in enumerate(zip(got, ref_got)):
+        check((g.doc_ids == w.doc_ids).all() and (g.n_superblocks_visited, g.n_blocks_scored) == (
+            w.n_superblocks_visited, w.n_blocks_scored), f"sharded request {i}: kernel vs impl='ref'")
+    cand = np.stack([r.shard_candidates for r in got])
+    log(f"sharded lsp0 == local (fwd phase) on ids, theta and both counters for all {len(got)} requests, largest "
+        f"score difference {diff:.3g}; == impl='ref' on ids and both counters; top-gamma share per shard: mean "
+        f"{cand.mean(axis=0).round(1).tolist()}, min {cand.min(axis=0).tolist()}, max {cand.max(axis=0).tolist()}")
+    first_calls = {k: v[: {"doc_score_fwd": 2 * N_SHARDS}.get(k, N_SHARDS)] for k, v in holder["calls"].items()}
+    qbs = [make_query_batch([(r.tids, r.weights) for r in b], idx.vocab, nq_max=max(len(r.tids) for r in b),
+                            device=device) for b in batches]
+    host = [sharded._backend(qb, sharded.defaults) for qb in qbs]
+    host = [{f: getattr(o, f).cpu().numpy() for f in o._fields} for o in host]
+    local_ms, sharded_ms = [], []
+    for _ in range(3):
+        for b in batches:
+            local_ms.append(host_ms(lambda: retr.search_batch(b)))
+            sharded_ms.append(host_ms(lambda: sharded.search_batch(b)))
+    log(f"search_batch of {BATCH}, lsp0: sharded (host loop, {N_SHARDS} shards) median "
+        f"{statistics.median(sharded_ms):.2f} ms, local median {statistics.median(local_ms):.2f} ms "
+        f"(interleaved, {len(local_ms)} calls each)")
+    profile_call(f"sharded search_batch ({BATCH} requests, {N_SHARDS} shards)", lambda: sharded.search_batch(batches[0]))
+    profile_call(f"local search_batch ({BATCH} requests), beside it", lambda: retr.search_batch(batches[0]))
+
+    # ---- 2. lsp2 (SBavg per shard) and a binding block budget, against local at the same config
+    wide = dataclasses.replace(retr.defaults, eta=SHARDED_BUDGET_ETA)
+    for label, c2, params in (
+            ("lsp2", dataclasses.replace(cfg, variant="lsp2"), retr.defaults),
+            (f"block_budget {SHARDED_BLOCK_BUDGET}, eta {SHARDED_BUDGET_ETA}",
+             dataclasses.replace(cfg, block_budget=SHARDED_BLOCK_BUDGET), wide)):
+        plan = make_plan(c2, idx.n_superblocks, shards[0].n_superblocks, idx.c, idx.b, N_SHARDS)
+        local = [r for b in batches for r in Retriever.from_index(idx, c2, params=params, device=device).search_batch(b)]
+        sh = Retriever.from_index(shards, c2, params=params, ns_true=idx.n_superblocks, device=device)
+        out, n, sites_n = counted(core_ops, lambda: [r for b in batches for r in sh.search_batch(b)], sites)
+        diff = max(_same_ids_theta_counters(g, w, f"sharded {label}, request {i}") for i, (g, w)
+                   in enumerate(zip(out, local)))
+        blocks = np.mean([r.n_blocks_scored for r in out])
+        log(f"sharded {label}: == local on ids, theta and both counters for all {len(out)} requests (largest score "
+            f"difference {diff:.3g}); launches {n}, sbmax by call site {sites_n}; cross-shard bounds merge "
+            f"{plan.competitive} (budget*c = {plan.budget * idx.c}, block_budget {plan.block_budget}); mean blocks "
+            f"scored {blocks:.1f}")
+        if c2.variant == "lsp2":
+            check(sites_n["SBavg"] == len(batches) * N_SHARDS, "SBavg on every shard")
+            continue
+        free = [r for b in batches for r in Retriever.from_index(idx, cfg, params=wide, device=device).search_batch(b)]
+        free_blocks = np.mean([r.n_blocks_scored for r in free])
+        log(f"  without the budget at eta {SHARDED_BUDGET_ETA}: mean blocks scored {free_blocks:.1f}; the cut kept "
+            f"at most {SHARDED_BLOCK_BUDGET} of phase 3's")
+        check(plan.competitive and blocks < free_blocks, "the block budget binds and cuts blocks")
+
+    # ---- 3. the engine over the saved set, swap_index to the single directory and back under traffic
+    t0 = time.perf_counter()
+    loaded = Retriever.load(sharded_dir, cfg, device=device)
+    load_s = time.perf_counter() - t0
+    check(loaded.backend_name == "sharded" and loaded._backend.n_shards == N_SHARDS, "the set loads sharded")
+    engine = loaded.serve(max_batch=BATCH, nq_max=ENGINE_NQ, cache_size=0)
+    try:
+        engine.warmup()
+        out, _ = _submit_all(engine, requests, 8)
+        for i, (g, w) in enumerate(zip(out, got)):
+            check(not isinstance(g, BaseException), f"engine request {i} over the loaded set failed: {g!r}")
+            _same_response(g, w, f"engine request {i} over the loaded set vs search_batch")
+        log(f"Retriever.load of the {N_SHARDS}-shard directory {load_s:.2f} s; its engine answers all "
+            f"{len(requests)} requests equal to the host loop's search_batch")
+        stop, lock = threading.Event(), threading.Lock()
+        seen, errors = [], []
+
+        def client(first):
+            i = first
+            while not stop.is_set():
+                try:
+                    resp = engine.search(requests[i % len(requests)]).result(timeout=120)
+                except Exception as exc:  # noqa: BLE001 - counted as a failure below
+                    with lock:
+                        errors.append(exc)
+                    return
+                with lock:
+                    seen.append((i % len(requests), resp))
+                i += 4
+
+        threads = [threading.Thread(target=client, args=(t,)) for t in range(4)]
+        for t in threads:
+            t.start()
+        swap_s = []
+        try:
+            for epoch, target in enumerate((single_dir, sharded_dir, single_dir), start=1):
+                time.sleep(0.5)
+                t0 = time.perf_counter()
+                check(engine.swap_index(target) == epoch, f"swap {epoch}")
+                swap_s.append(time.perf_counter() - t0)
+            time.sleep(0.5)
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(timeout=300)
+        check(not any(t.is_alive() for t in threads), "a client thread of the swap traffic hung")
+        check(not errors, f"requests failed across the swaps: {errors[:3]}")
+        for i, resp in seen:
+            _same_response(resp, got[i], f"request {i} at epoch {resp.epoch}")
+        epochs = Counter(resp.epoch for _, resp in seen)
+        check(set(epochs) == {0, 1, 2, 3}, f"traffic saw every epoch: {dict(epochs)}")
+        check(engine.stats.summary()["failures"] == 0, "no failure in the engine")
+        log(f"engine swap_index under 4 client threads: single dir -> sharded dir -> single dir, each cut into "
+            f"{N_SHARDS} shards, {[f'{s:.2f}' for s in swap_s]} s; {len(seen)} responses by epoch "
+            f"{dict(sorted(epochs.items()))}, each equal to the host loop's; 0 failures")
+    finally:
+        engine.shutdown()
+    del loaded, engine
+    torch.cuda.empty_cache()
+
+    # ---- 4. the process-group transport: 3 gloo ranks on the card, each with its own shard
+    ranks = process_group_run(sharded_dir, cfg, sharded.defaults, requests, device)
+    for rank, res in sorted(ranks.items()):
+        for b, (g, w) in enumerate(zip(res["outs"], host)):
+            for f, want in w.items():
+                check(np.array_equal(g[f], want), f"process group rank {rank}, batch {b}: {f} differs from the host loop")
+        check(res["launches"]["sbmax"] == len(batches) and res["launches"]["boundsum_gather"] == len(batches)
+              and res["launches"]["doc_score_fwd"] == 2 * len(batches), f"rank {rank} launches {res['launches']}")
+        log(f"process group rank {rank}: every field of all {len(host)} batches equal to the host loop (ids, scores, "
+            f"theta, both counters, shard_theta, shard_superblocks, shard_blocks, shard_candidates); launches "
+            f"{res['launches']}; its shard {res['shard_gb']:.3f} GB loaded in {res['load_s']:.2f} s; a batch "
+            f"{statistics.median(res['batch_ms']):.2f} ms median (host clock)")
+    return launches, first_calls
 
 
 def main() -> int:
@@ -1290,13 +1640,22 @@ def smoke(device) -> int:
         # ---- 7d. the live mutable index over the same index, then the sharded store
         mutable_launches = mutable_phase(idx, corpus, queries, requests, device, core_ops, sites, single_dir, tmp)
         log(f"mutable path launches: {mutable_launches}")
-        sharded_store_phase(idx, device, core_ops, sites, tmp)
+        shards, sharded_dir = sharded_store_phase(idx, device, core_ops, sites, tmp)
+
+        # ---- 7e. sharded serving over those shards and that directory
+        sharded_launches, sharded_calls = sharded_phase(retr, batches, responses, shards, sharded_dir, single_dir,
+                                                        device, core_ops, sites)
+        del shards
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
 
-    # ---- 7e. dense-embedding LSP (recsys retrieval_cand)
-    launches["dequant_matmul"], dense_captured = dense_phase(device, core_ops, sites)
+    # ---- 7f. dense-embedding LSP (recsys retrieval_cand), and sharded
+    launches["dequant_matmul"], dense_captured, (dense_sharded_launches, dense_sharded_calls) = dense_phase(
+        device, core_ops, sites)
     captured.update(dense_captured)
+    sharded_launches["dequant_matmul"] = dense_sharded_launches
+    sharded_calls["dequant_matmul"] = dense_sharded_calls
 
     # ---- 8. each kernel vs its plain version at its path's shapes, timed
     flush = torch.empty(128 * 2**20, dtype=torch.float32, device=device)
@@ -1318,19 +1677,25 @@ def smoke(device) -> int:
 
     # a row per kernel over its captured calls, and for sbmax a row per call
     # site at the site's first captured call
-    groups = []  # (kernel, call site or None, calls, launches)
+    groups = []  # (kernel, call site or None, calls, launches, path or None)
     for key in KERNELS:
         check(captured[key], f"no captured call of {key}")
         if key != "sbmax":
-            groups.append((key, None, captured[key], launches[key]))
+            groups.append((key, None, captured[key], launches[key], None))
             continue
         for site in SBMAX_SITES:
             calls = [args for args in captured[key] if sites[args[0].data_ptr()] == site]
             check(calls, f"no captured call of sbmax at {site}")
-            groups.append((key, site, calls[:1], sbmax_launches[site]))
+            groups.append((key, site, calls[:1], sbmax_launches[site], None))
+    # a row per kernel of the sharded paths over its per-shard launches (the
+    # first batch or call), launches counted on those paths
+    for key in ("sbmax", "boundsum_gather", "doc_score_fwd", "dequant_matmul"):
+        check(sharded_calls[key], f"no captured call of {key} on a sharded path")
+        groups.append((key, "phase 1" if key == "sbmax" else None, sharded_calls[key], sharded_launches[key],
+                       "sharded"))
 
     rows = []
-    for key, site, calls, n_launches in groups:
+    for key, site, calls, n_launches, path in groups:
         attr, src, replaces = KERNELS[key]
         kernel = getattr(core_ops, attr)
         per_call = []
@@ -1343,7 +1708,8 @@ def smoke(device) -> int:
             plain_ms = timed_ms(lambda: plain[key](*args), flush)
             bound_ms, bound_by = bound(*work[key](*args))
             shape = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
-            log(f"{key}{f' ({site})' if site else ''} at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            log(f"{key}{f' ({site})' if site else ''}{f' [{path}]' if path else ''} at {shape}: kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, "
                 f"bound {bound_ms:.4f} ms ({bound_by}), max_abs_err {err:.3g}")
             if key == "sbmax":  # the floor under it: the launch and a write of the output
                 zeros = torch.empty_like(k_out)
@@ -1377,7 +1743,7 @@ def smoke(device) -> int:
         rows.append({"name": key, "route": "cuda", "source": src, "replaces": replaces,
                      "launches": n_launches, "max_abs_err": max(p[1] for p in per_call), "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-                     **({"call_site": site} if site else {})})
+                     **({"call_site": site} if site else {}), **({"path": path} if path else {})})
 
     # ---- search_batch end to end (host clock; each call ends in a device->host copy)
     for _ in range(2):

@@ -7,8 +7,14 @@ returns a callable with the ``core.lsp.make_dynamic_runner`` contract:
     retriever.supports_dynamic / .warmup(shapes) / .n_traces()
     retriever.static_cfg / .defaults / .vocab
 
-Built-ins: ``local`` (the single-device LSP traversal) and ``exact`` (the
-rank-safe exhaustive oracle behind the same contract).
+Built-ins:
+  local      the single-device LSP traversal (the default)
+  sharded    the host-loop sharded transport: equal to ``local``, every shard
+             on one device (``distributed.sharded.ShardedRetriever``)
+  shard_map  the process-group transport, the counterpart of the JAX
+             package's mesh backend: one ``torch.distributed`` rank per
+             shard (``group=`` in place of ``mesh=``)
+  exact      the rank-safe exhaustive oracle behind the same contract
 """
 
 from __future__ import annotations
@@ -49,7 +55,8 @@ def list_backends() -> list[str]:
 
 def _require_index(index, name: str) -> None:
     if not isinstance(index, LSPIndex):
-        raise ValueError(f"backend {name!r} serves one LSPIndex")
+        raise ValueError(f"backend {name!r} serves one LSPIndex; a sharded index set needs backend "
+                         f"'sharded' or 'shard_map'")
 
 
 @register_backend("local")
@@ -58,6 +65,34 @@ def local_backend(index: LSPIndex, static_cfg: StaticConfig, *, impl: str = "aut
     """The single-device LSP traversal (the default)."""
     _require_index(index, "local")
     return make_search_runner(index, static_cfg, impl=impl, defaults=defaults)
+
+
+@register_backend("sharded")
+def sharded_backend(index, static_cfg: StaticConfig, *, shards: int = 0, impl: str = "auto",
+                    defaults: Optional[DynamicParams] = None, ns_true: Optional[int] = None):
+    """The host-loop sharded transport: equal to 'local', with index memory cut
+    into contiguous superblock ranges. ``index`` is an ``LSPIndex`` (cut into
+    ``shards``), a ``store.ShardedIndex`` or a list of shards."""
+    from repro_torch.distributed.sharded import ShardedRetriever
+
+    return ShardedRetriever(index, static_cfg, n_shards=shards or None, impl=impl, ns_true=ns_true,
+                            defaults=defaults)
+
+
+@register_backend("shard_map")
+def shard_map_backend(index, static_cfg: StaticConfig, *, shards: int = 0, group=None, impl: str = "auto",
+                      defaults: Optional[DynamicParams] = None, ns_true: Optional[int] = None):
+    """The process-group transport (the JAX package's mesh backend): this
+    rank serves its own shard of ``index`` over ``group``, a
+    ``torch.distributed`` process group of one rank per shard, which takes
+    the place of the JAX ``mesh=``. Every rank calls the retriever with the
+    same batches."""
+    from repro_torch.distributed.sharded import ShardedRetriever
+
+    if group is None:
+        raise ValueError("backend 'shard_map' needs group= (a torch.distributed process group, one rank a shard)")
+    return ShardedRetriever(index, static_cfg, n_shards=shards or None, group=group, impl=impl,
+                            ns_true=ns_true, defaults=defaults)
 
 
 @register_backend("exact")

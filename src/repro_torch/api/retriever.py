@@ -6,12 +6,14 @@
     resps = retr.search_batch([SearchRequest(...), ...])  # one batched call
     retr.save("/path/to/index")                           # the lsp-index directory format
     retr = Retriever.load("/path/to/index")               # ... written by either package
+    retr = Retriever.load("/path/to/sharded")             # a shard set, at its stored shard count
+    retr = Retriever.build(corpus, shards=4)              # cut into 4 shards, the sharded backend
     eng = retr.serve(max_batch=64, cache_size=1024)       # async bucketed engine
     retr.add([(tids, ws), ...]); retr.delete([doc_id])     # live mutation
     retr.compact()                                        # fold the delta into superblocks
 
 The facade owns the static/dynamic boundary: ``StaticConfig`` sizes the
-traversal (the backend registry picks local or exact), the paper's
+traversal (the backend registry: local, sharded, shard_map, exact), the paper's
 ``DynamicParams.recommended(k)`` preset is the default dynamic point, and any
 request may override it. Everything runs on CUDA unless ``device="cpu"`` is
 passed. ``mutable()`` (or the first ``add``/``delete``) promotes a retriever
@@ -37,11 +39,21 @@ from repro_torch.index.layout import LSPIndex, index_device, index_to
 
 def _lead(index) -> LSPIndex:
     """The LSPIndex whose vocab and device stand for ``index``: itself, or the
-    first shard of a sharded set (a ``ShardedIndex`` or a list of shards)."""
+    first shard held of a sharded set (a ``ShardedIndex`` or a list of
+    shards; a process-group rank holds only its own)."""
     if isinstance(index, LSPIndex):
         return index
-    shards = getattr(index, "shards", index)
-    return shards[0]
+    return next(s for s in getattr(index, "shards", index) if s is not None)
+
+
+def _to_device(index, device):
+    """``index`` (an LSPIndex, a ``ShardedIndex`` or a list of shards) with
+    every tensor on ``device``."""
+    if isinstance(index, LSPIndex):
+        return index_to(index, device)
+    if hasattr(index, "shards"):
+        return index._replace(shards=tuple(None if s is None else index_to(s, device) for s in index.shards))
+    return [None if s is None else index_to(s, device) for s in index]
 
 
 def _corpus_arrays(corpus):
@@ -54,10 +66,17 @@ def _corpus_arrays(corpus):
 
 
 class Retriever:
-    """Search facade over an ``LSPIndex`` (a ``MutableIndex`` once promoted)
-    and a registered backend. A backend of the caller's own may serve a
-    sharded set (``index=`` a ``store.ShardedIndex`` or a list of shards);
-    such a retriever can neither be promoted nor saved in place."""
+    """Search facade over an index and a registered backend.
+
+    Construction: ``build`` (corpus -> index), ``load`` (a persisted
+    directory: single, sharded or mutable) or ``from_index`` (an
+    ``LSPIndex``, a ``store.ShardedIndex`` or a list of shards). The backend
+    resolves itself: 'local' for one index, 'sharded' when shards are asked
+    for or given, 'shard_map' when a process ``group`` is given too; or pass
+    ``backend=`` (``api.backends.list_backends()``). ``index`` is what was
+    served (a ``MutableIndex`` once promoted). A retriever over a sharded set
+    can neither be promoted nor saved in place; one built from a corpus with
+    ``shards=`` keeps the unsharded index and promotes."""
 
     def __init__(self, backend_callable, *, index, static_cfg: StaticConfig,
                  defaults: DynamicParams, backend_name: str, factory=None):
@@ -76,29 +95,52 @@ class Retriever:
     @classmethod
     def from_index(
         cls,
-        index: LSPIndex,
+        index,
         static_cfg: Optional[StaticConfig] = None,
         *,
         params: Optional[DynamicParams] = None,
-        backend: str = "local",
+        backend: Optional[str] = None,
+        shards: int = 0,
+        group=None,
         impl: str = "auto",
+        ns_true: Optional[int] = None,
         device=None,
         **backend_kw,
     ) -> "Retriever":
-        """Serve ``index`` (moved to ``device``, CUDA by default) through ``backend``."""
+        """Serve ``index`` (moved to ``device``, CUDA by default) through
+        ``backend``. ``shards=P`` cuts an ``LSPIndex`` into P shards; a
+        ``ShardedIndex`` or a list of shards is served at its own count
+        (``ns_true``: the global superblock count of a padded shard list).
+        ``group`` (a ``torch.distributed`` process group of one rank per
+        shard) serves this rank's shard through the process-group
+        transport."""
         device = resolve_device(device)
-        index = index_to(index, device)
+        index = _to_device(index, device)
+        stored_shards = len(index.shards) if hasattr(index, "shards") else 0
+        is_shard_list = not isinstance(index, LSPIndex) and not stored_shards
+        is_sharded = bool(stored_shards or shards or is_shard_list)
+        if backend is None:
+            backend = "shard_map" if (group is not None and is_sharded) else ("sharded" if is_sharded else "local")
         if static_cfg is None:
             k = params.k if params is not None else DynamicParams.k
-            static_cfg = recommended_static(k, n_superblocks=index.n_superblocks)
+            # a bare shard list has no global count; the shards' sum (>= the
+            # true count, by the tail padding) is a safe γ clamp
+            ns = ns_true or (len(index) * _lead(index).n_superblocks if is_shard_list else index.n_superblocks)
+            static_cfg = recommended_static(k, n_superblocks=ns)
         defaults = (params or DynamicParams.recommended(static_cfg.k_max)).validate_for(static_cfg)
         make = get_backend(backend)
+        kw = dict(impl=impl, defaults=defaults, **backend_kw)
+        if backend in ("sharded", "shard_map"):
+            kw.update(shards=shards or stored_shards, ns_true=ns_true)
+        if group is not None:
+            kw["group"] = group
 
         def factory(ix):
             """The backend over a fresh index on this retriever's device, at the
-            same static config, defaults and impl: the hot-swap hook of the
-            serving engine's ``swap_index``."""
-            return make(index_to(ix, device), static_cfg, impl=impl, defaults=defaults, **backend_kw)
+            same static config, defaults, impl and shard count: the hot-swap
+            hook of the serving engine's ``swap_index`` (a single index, or a
+            ``ShardedIndex`` whose shards flip together)."""
+            return make(_to_device(ix, device), static_cfg, **kw)
 
         return cls(factory(index), index=index, static_cfg=static_cfg, defaults=defaults, backend_name=backend,
                    factory=factory)
@@ -111,20 +153,23 @@ class Retriever:
         *,
         build_cfg=None,
         params: Optional[DynamicParams] = None,
-        backend: str = "local",
+        backend: Optional[str] = None,
+        shards: int = 0,
+        group=None,
         impl: str = "auto",
         device=None,
         **backend_kw,
     ) -> "Retriever":
-        """Build an index over ``corpus`` on ``device`` (CUDA by default) and serve it."""
+        """Build an index over ``corpus`` on ``device`` (CUDA by default) and
+        serve it (cut into ``shards`` with the sharded backend when asked)."""
         from repro_torch.index.builder import IndexBuildConfig, build_index
 
         device = resolve_device(device)
         doc_ptr, tids, ws, vocab = _corpus_arrays(corpus)
         build_cfg = build_cfg or IndexBuildConfig()
         index = build_index(doc_ptr, tids, ws, vocab, build_cfg, device=device)
-        retr = cls.from_index(index, static_cfg, params=params, backend=backend, impl=impl,
-                              device=device, **backend_kw)
+        retr = cls.from_index(index, static_cfg, params=params, backend=backend, shards=shards, group=group,
+                              impl=impl, device=device, **backend_kw)
         # the source corpus: mutable() then starts from the exact floats, not
         # from the dequantized forward index
         retr._corpus = (np.asarray(doc_ptr), np.asarray(tids), np.asarray(ws))
@@ -138,40 +183,64 @@ class Retriever:
         static_cfg: Optional[StaticConfig] = None,
         *,
         params: Optional[DynamicParams] = None,
-        backend: str = "local",
+        backend: Optional[str] = None,
+        shards: Optional[int] = None,
+        group=None,
         impl: str = "auto",
         mmap: bool = True,
         device=None,
         **backend_kw,
     ) -> "Retriever":
         """Open a persisted directory (``index.store``; one written by the JAX
-        package too) onto ``device`` (CUDA by default) and serve it through
-        ``backend``. A mutable directory (``save_mutable_index``) comes back
-        promoted, with its delta segment, tombstones and id counters, so
-        ``add``/``delete``/``compact`` resume where the save left off. A
-        sharded directory raises ``NotImplementedError``: the port has no
-        sharded backend yet (``store.load_index_auto`` reads one)."""
+        package too) onto ``device`` (CUDA by default) and serve it. A sharded
+        directory is served by the sharded backend at its stored shard count
+        (with ``group``, each rank loads only its own shard); ``shards=``
+        re-shards a single-index directory in memory. A mutable directory
+        (``save_mutable_index``) comes back promoted, with its delta segment,
+        tombstones and id counters, so ``add``/``delete``/``compact`` resume
+        where the save left off."""
         from repro_torch.index.store import (
             MUTABLE_MANIFEST_FORMAT,
             SHARDED_MANIFEST_FORMAT,
-            SHARDED_SERVING_MISSING,
             load_index,
+            load_index_auto,
             load_mutable_index,
+            load_shard_of,
             manifest_format,
+            read_sharded_manifest,
         )
 
         device = resolve_device(device)
         fmt = manifest_format(directory)
         if fmt == SHARDED_MANIFEST_FORMAT:
-            raise NotImplementedError(f"{directory} is a sharded index set: {SHARDED_SERVING_MISSING}")
+            stored = read_sharded_manifest(directory)["n_shards"]
+            if shards and shards != stored:
+                raise ValueError(
+                    f"{directory} stores a {stored}-shard index; cannot serve it as "
+                    f"shards={shards} — re-save with save_sharded_index or drop shards="
+                )
+            if group is None:
+                index = load_index_auto(directory, mmap=mmap, device=device)
+            else:
+                import torch.distributed as dist
+
+                index = load_shard_of(directory, dist.get_rank(group), mmap=mmap, device=device)
+            return cls.from_index(index, static_cfg, params=params, backend=backend, group=group, impl=impl,
+                                  device=device, **backend_kw)
         if fmt != MUTABLE_MANIFEST_FORMAT:
             index = load_index(directory, mmap=mmap, device=device)
-            return cls.from_index(index, static_cfg, params=params, backend=backend, impl=impl,
-                                  device=device, **backend_kw)
+            return cls.from_index(index, static_cfg, params=params, backend=backend, shards=shards or 0,
+                                  group=group, impl=impl, device=device, **backend_kw)
+        if shards or group is not None:
+            raise ValueError(
+                f"{directory} is a mutable-index save; it serves single-device "
+                f"(delta merge is host-side) — drop shards=/group=, or compact "
+                f"and re-save with save_sharded_index for sharded serving"
+            )
         from repro_torch.serve.mutable import MutableRetrieverAdapter
 
         mi = load_mutable_index(directory, mmap=mmap, device=device)
-        retr = cls.from_index(mi.state().main, static_cfg, params=params, backend=backend, impl=impl,
+        retr = cls.from_index(mi.state().main, static_cfg, params=params, backend=backend or "local", impl=impl,
                               device=device, **backend_kw)
         retr._build_cfg = mi.build_cfg
         mi.set_runtime(retr._backend)
@@ -202,6 +271,8 @@ class Retriever:
         theta = None if out.theta is None else to_host(out.theta)
         nsb = to_host(out.n_superblocks_visited)
         nblk = to_host(out.n_blocks_scored)
+        shard_cand = getattr(out, "shard_candidates", None)
+        shard_cand = None if shard_cand is None else to_host(shard_cand)
         served_seq = int(getattr(out, "delta_seq", 0) or 0)
         return [
             SearchResponse(
@@ -212,6 +283,7 @@ class Retriever:
                 n_blocks_scored=int(nblk[i]),
                 params=row_params[i],
                 bucket=(len(requests), nq),
+                shard_candidates=None if shard_cand is None else shard_cand[i].copy(),
                 delta_seq=served_seq,
             )
             for i in range(len(requests))
@@ -228,8 +300,11 @@ class Retriever:
         superblocks on this retriever's device. ``build()`` keeps the source
         corpus, so promotion is exact; a retriever over a loaded index
         reconstructs its corpus from the forward index (dequantized, see
-        ``index.mutable.corpus_from_index``). A sharded set cannot be promoted
-        in place: its source corpus is not recoverable shard by shard."""
+        ``index.mutable.corpus_from_index``). A loaded sharded set cannot be
+        promoted in place: its source corpus is not recoverable shard by shard.
+        ``Retriever.build(corpus, shards=P)`` keeps the unsharded index and its
+        corpus, so it promotes, and serves the main generation through the
+        sharded backend."""
         if self._adapter is not None:
             return self
         from repro_torch.index.builder import IndexBuildConfig
@@ -248,7 +323,8 @@ class Retriever:
                 "mutable() promotion of a sharded retriever",
                 "the source corpus is not recoverable shard-wise; Retriever.load "
                 "the single-index directory (the unsharded save) or "
-                "Retriever.build from the corpus, and promote THAT",
+                "Retriever.build from the corpus, promote THAT, and serve it "
+                "with backend='sharded'",
             )
         mi = MutableIndex(main, doc_ptr, tids, ws, self.vocab, self._build_cfg or IndexBuildConfig(),
                           runtime=self._backend, device=self.device)

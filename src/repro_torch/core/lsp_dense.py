@@ -1,7 +1,7 @@
 """Dense-embedding LSP: superblock pruning for dot-product retrieval over dense
 candidate embeddings (recsys ``retrieval_cand``, MIND serving).
 
-The port of the JAX package's ``core/lsp_dense.py`` (single device). A block
+The port of the JAX package's ``core/lsp_dense.py``. A block
 B's score bound for query q adapts Eq. 1 to signed vectors:
 
   Bound(q, B) = q+ . maxW(B) + q- . minW(B)
@@ -15,6 +15,11 @@ of the surviving blocks' candidates.
 Tie order: the superblock candidate list and the block cut take indices, so
 they use ``stable_topk`` (``jax.lax.top_k``'s lower-position rule); θ uses
 values only; the final merge is ``canonical_topk`` (score desc, id asc).
+
+Sharded (``shard_dense_index``, ``make_sharded_dense_retriever``): each shard
+of contiguous superblocks prunes and scores its candidates with the full γ,
+and the per-shard top-k merge canonically, in one process (the host loop) or
+one process-group rank per shard (all-gathers of [B, P*k]).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from typing import NamedTuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import ops
 from repro_torch.core.bounds import unpack_strided
@@ -32,6 +38,7 @@ from repro_torch.core.lsp import resolve_block_budget
 from repro_torch.core.scoring import NEG
 from repro_torch.core.topk import canonical_topk, stable_topk
 from repro_torch.device import resolve_device
+from repro_torch.distributed.topk import all_gather_cat, merge_shard_results
 from repro_torch.index import clustering
 from repro_torch.index.pack import SEG_WORDS, pack_rows_strided
 
@@ -216,6 +223,78 @@ def retrieve_dense(index: DenseLSPIndex, q, cfg: RetrievalConfig, impl: str = "a
     ids_all = index.remap[torch.clamp(pos, 0, index.remap.shape[0] - 1)]
     vals, ids = canonical_topk(scores, ids_all, cfg.k)
     return torch.where(vals > NEG / 2, ids, -1), vals
+
+
+def _slice_minmax(pm: PackedMinMax, lo: int, n: int, granule: int) -> PackedMinMax:
+    """Columns [lo, lo + n) of both packed matrices, repacked at ``granule``."""
+
+    def cut(words):
+        vals = unpack_strided(words, pm.bits, pm.granule_words)[:, lo: lo + n]
+        return pack_rows_strided(vals.to(torch.uint8), pm.bits, granule)
+
+    return PackedMinMax(cut(pm.max_packed), cut(pm.min_packed), pm.scale, pm.zero, n, granule, pm.bits)
+
+
+def shard_dense_index(index: DenseLSPIndex, n_shards: int) -> list[DenseLSPIndex]:
+    """Cut a dense index into ``n_shards`` contiguous superblock ranges (bounds
+    repacked per shard; the candidate rows are views). The superblock count
+    must divide evenly (``DenseIndexConfig.ns_align``)."""
+    if index.n_superblocks % n_shards:
+        raise ValueError(f"{index.n_superblocks} superblocks do not cut into {n_shards} equal shards; "
+                         f"build with ns_align a multiple of {n_shards}")
+    ns_l = index.n_superblocks // n_shards
+    nb_l = ns_l * index.c
+    np_l = nb_l * index.b
+    cw = index.c * index.blk.bits // 32
+    return [
+        DenseLSPIndex(
+            b=index.b, c=index.c, n_cands=index.n_cands, dim=index.dim, n_blocks=nb_l, n_superblocks=ns_l,
+            sb=_slice_minmax(index.sb, s * ns_l, ns_l, SEG_WORDS),
+            blk=_slice_minmax(index.blk, s * nb_l, nb_l, cw),
+            cands=index.cands[s * np_l: (s + 1) * np_l],
+            remap=index.remap[s * np_l: (s + 1) * np_l],
+        )
+        for s in range(n_shards)
+    ]
+
+
+def dense_local_fn(cfg: RetrievalConfig, impl: str = "auto"):
+    """The per-shard body of the sharded dense retriever: ``local_fn(shard, q)
+    -> (ids [B, k], scores [B, k], NEG where no id)``, ready for the
+    canonical merge of ``distributed.topk.merge_shard_results``."""
+
+    def local_fn(local: DenseLSPIndex, q):
+        ids, vals = retrieve_dense(local, q, cfg, impl)
+        return ids, torch.where(ids >= 0, vals, NEG)
+
+    return local_fn
+
+
+def make_sharded_dense_retriever(shards: list[DenseLSPIndex], cfg: RetrievalConfig, group=None,
+                                 impl: str = "auto"):
+    """Sharded dense LSP: each shard prunes and scores its candidate range
+    with the full γ, then the per-shard top-k merge canonically (collectives
+    of O(P*k) a row). ``group=None`` runs every shard in this process (the
+    host loop); a process group of one rank per shard runs rank r on
+    ``shards[r]`` (the other entries may be None) with all-gathers, and every
+    rank calls ``run(q)`` with the same rows. Returns ``run(q) -> (ids [B,
+    k], scores [B, k])``."""
+    local_fn = dense_local_fn(cfg, impl)
+    if group is None:
+        def run(q):
+            parts = [local_fn(s, q) for s in shards]
+            ids = torch.cat([p[0] for p in parts], dim=1)
+            return merge_shard_results(torch.cat([p[1] for p in parts], dim=1), ids, cfg.k)
+        return run
+    if dist.get_world_size(group) != len(shards):
+        raise ValueError(f"a group of {dist.get_world_size(group)} ranks cannot serve {len(shards)} shards")
+    own = shards[dist.get_rank(group)]
+
+    def run_group(q):
+        ids, vals = local_fn(own, q)
+        return merge_shard_results(all_gather_cat(vals, group), all_gather_cat(ids, group), cfg.k)
+
+    return run_group
 
 
 def retrieve_dense_exact(index: DenseLSPIndex, q, k: int):

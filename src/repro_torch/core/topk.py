@@ -32,3 +32,19 @@ def canonical_topk(scores: torch.Tensor, ids: torch.Tensor, k: int) -> tuple[tor
     i1 = ids.gather(-1, by_id)
     by_score = torch.argsort(s1, dim=-1, descending=True, stable=True)[..., :k]
     return s1.gather(-1, by_score), i1.gather(-1, by_score)
+
+
+def canonical_keep_mask(scores: torch.Tensor, ids: torch.Tensor, cut_vals: torch.Tensor,
+                        cut_ids: torch.Tensor) -> torch.Tensor:
+    """Membership against a canonical cutoff: True where (score, id) orders
+    at or before (cut_val, cut_id) under (score desc, id asc).
+
+    scores/ids [..., N]; cut_vals/cut_ids [...] (one cutoff pair per row).
+    When the cutoff is the k-th entry of ``canonical_topk`` over a union of
+    sets with globally unique ids, the order is total, so exactly the union's
+    canonical top-k entries pass, on whichever part of the union each caller
+    holds: a shard tells which of its blocks made the global cut without
+    being sent the member list."""
+    cv = cut_vals[..., None]
+    ci = cut_ids[..., None]
+    return (scores > cv) | ((scores == cv) & (ids <= ci))

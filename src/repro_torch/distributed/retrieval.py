@@ -1,8 +1,9 @@
-"""Contiguous superblock-range shards of an LSPIndex (the shard cutter).
+"""Contiguous superblock-range shards of an LSPIndex, and retrieval that runs
+the whole pipeline per shard.
 
-The port of the JAX package's ``distributed/retrieval.py`` shard cutter
+The port of the JAX package's ``distributed/retrieval.py``. The shard cutter
 (``_pb_slice``, ``_pad_rows``, ``shards_of``, ``_local_index``,
-``shard_index``); its shards are byte-equal to the JAX package's. Each shard
+``shard_index``) gives shards byte-equal to the JAX package's. Each shard
 owns a contiguous range of superblocks (and their blocks and documents); the
 last shard's ragged tail is padded with empty superblocks. The cut runs on
 the index's device.
@@ -16,13 +17,26 @@ superblock's c blocks) the words are sliced directly and the tail padded with
 zero words; elsewhere (the superblock matrices, whose granule is 1,024
 superblocks at 4 bits) only the granules the shard covers are unpacked, a
 chunk of term rows at a time.
+
+``retrieve_distributed`` (host loop) and ``make_mesh_retriever`` (one
+process-group rank per shard) run the full LSP pipeline on every shard at the
+same γ and merge canonically: rank-safe (the union of per-shard top-γ covers
+the global top-γ), but not equal to one device, since each shard seeds its own
+θ, and a binding ``block_budget`` applies per shard. The equal split is
+``distributed/sharded.py``'s ``ShardedRetriever``.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.bounds import unpack_strided
+from repro_torch.core.config import RetrievalConfig
+from repro_torch.core.lsp import search_retrieve
+from repro_torch.core.query import QueryBatch
+from repro_torch.core.scoring import NEG
+from repro_torch.distributed.topk import all_gather_cat, merge_shard_results
 from repro_torch.index.layout import LSPIndex, PackedBounds
 from repro_torch.index.pack import pack_rows_strided, vals_per_word
 
@@ -111,3 +125,67 @@ def shard_index(index: LSPIndex, n_shards: int) -> list[LSPIndex]:
     shard's ragged tail (when NS % n_shards != 0) is padded with empty
     superblocks that score NEG."""
     return [_local_index(index, s, n_shards) for s in range(n_shards)]
+
+
+def _shard_result(shard: LSPIndex, qb: QueryBatch, cfg: RetrievalConfig, impl: str):
+    res = search_retrieve(shard, qb, cfg.static(), cfg.dynamic(), impl=impl)
+    return torch.where(res.doc_ids >= 0, res.scores, NEG), res.doc_ids
+
+
+def retrieve_distributed(shards: list[LSPIndex], qb: QueryBatch, cfg: RetrievalConfig, impl: str = "ref"):
+    """Host-loop counterpart of ``make_mesh_retriever``: the full pipeline on
+    every shard, then the canonical merge. Returns (ids [Q, k], scores [Q, k])."""
+    parts = [_shard_result(sh, qb, cfg, impl) for sh in shards]
+    scores = torch.cat([p[0] for p in parts], dim=1)
+    return merge_shard_results(scores, torch.cat([p[1] for p in parts], dim=1), cfg.k)
+
+
+class StackedShards:
+    """Per-shard tensors stacked on a leading shard axis; ``local(p)`` is shard
+    p's LSPIndex over them (scoring reads the fwd operand only; no ``sb_avg``,
+    as in the JAX package's stacked shards)."""
+
+    def __init__(self, shards: list[LSPIndex]):
+        self.meta = shards[0]
+        self.n_shards = len(shards)
+
+        def st(get):
+            return torch.stack([get(s) for s in shards])
+
+        self.sb_packed = st(lambda s: s.sb_bounds.packed)
+        self.blk_packed = st(lambda s: s.blk_bounds.packed)
+        self.fwdq_tids = st(lambda s: s.docs_fwdq.tids)
+        self.fwdq_ws = st(lambda s: s.docs_fwdq.ws)
+        self.fwdq_scales = st(lambda s: s.docs_fwdq.scales)
+        self.remap = st(lambda s: s.doc_remap)
+
+    def local(self, p: int) -> LSPIndex:
+        meta = self.meta
+        return meta._replace(
+            sb_bounds=meta.sb_bounds._replace(packed=self.sb_packed[p]),
+            blk_bounds=meta.blk_bounds._replace(packed=self.blk_packed[p]),
+            sb_avg=None,
+            docs_fwd=None,
+            docs_flat=None,
+            doc_remap=self.remap[p],
+            docs_fwdq=meta.docs_fwdq._replace(tids=self.fwdq_tids[p], ws=self.fwdq_ws[p], scales=self.fwdq_scales[p]),
+            docs_flatq=None,
+        )
+
+
+def make_mesh_retriever(shards: list[LSPIndex], cfg: RetrievalConfig, group=None, impl: str = "auto"):
+    """Process-group counterpart of the JAX ``shard_map`` retriever: rank r runs
+    the full pipeline on shard r (``group`` has one rank per shard), the
+    per-shard (score, id) lists are all-gathered over the group and merged
+    canonically. Every rank calls ``run(qb)`` with the same batch; each gets
+    (ids [Q, k], scores [Q, k]). Returns (run, the stacked shards)."""
+    if dist.get_world_size(group) != len(shards):
+        raise ValueError(f"a group of {dist.get_world_size(group)} ranks cannot serve {len(shards)} shards")
+    stacked = StackedShards(shards)
+    local = stacked.local(dist.get_rank(group))
+
+    def run(qb: QueryBatch):
+        scores, ids = _shard_result(local, qb, cfg, impl)
+        return merge_shard_results(all_gather_cat(scores, group), all_gather_cat(ids, group), cfg.k)
+
+    return run, stacked

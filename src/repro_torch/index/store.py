@@ -61,8 +61,6 @@ MANIFEST_NAME = "manifest.msgpack"
 MANIFEST_FORMAT = "lsp-index"
 SHARDED_MANIFEST_FORMAT = "lsp-sharded-index"
 MUTABLE_MANIFEST_FORMAT = "lsp-mutable-index"
-# the port stores and loads sharded sets, but serves one LSPIndex
-SHARDED_SERVING_MISSING = "the port has no sharded backend yet (ROADMAP.md, queue 1 item 4)"
 
 # Every NamedTuple node that may appear in an LSPIndex, by manifest type tag: a
 # load can only ever construct these types.
@@ -322,6 +320,21 @@ def load_sharded_index(directory: str, mmap: bool = True, verify: bool = False, 
         load_index(os.path.join(directory, name), mmap=mmap, verify=verify, expect_fingerprint=fp, device=device)
         for name, fp in zip(manifest["shard_dirs"], manifest["shard_fingerprints"])
     ]
+
+
+def load_shard_of(directory: str, rank: int, mmap: bool = True, verify: bool = False, device=None):
+    """The ``ShardedIndex`` of a persisted set as one process-group rank holds
+    it: shard ``rank`` loaded onto ``device`` (held to its fingerprint in the
+    parent manifest), every other entry None. A rank past the set's shards
+    gets no shard."""
+    manifest = read_sharded_manifest(directory)
+    _check_version(directory, manifest)
+    shards = [None] * manifest["n_shards"]
+    if rank < len(shards):
+        shards[rank] = load_index(os.path.join(directory, manifest["shard_dirs"][rank]), mmap=mmap, verify=verify,
+                                  expect_fingerprint=manifest["shard_fingerprints"][rank], device=device)
+    return ShardedIndex(shards=tuple(shards), n_superblocks=manifest["n_superblocks"],
+                        fingerprint=manifest["fingerprint"])
 
 
 # ------------------------------------------------------------- mutable indexes

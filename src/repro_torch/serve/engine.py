@@ -648,23 +648,21 @@ class RetrievalEngine:
         return epoch
 
     def swap_index(self, path_or_index, warm: bool = True) -> int:
-        """Hot-swap to a new index: an ``LSPIndex``, or the path of a persisted
-        directory (``index.store``, the JAX package's formats too) read through
-        ``load_index_auto`` onto the serving retriever's device. Needs
-        ``retriever_factory``; load, build and warm-up all happen on the calling
-        thread, so a failing load raises HERE and the engine keeps serving on
-        the old retriever. A sharded set (a ``ShardedIndex`` or its directory)
-        raises ``NotImplementedError`` before anything flips: the port has no
-        sharded backend yet."""
-        from repro_torch.index.store import SHARDED_SERVING_MISSING, ShardedIndex, load_index_auto
+        """Hot-swap to a new index: an ``LSPIndex``, a ``store.ShardedIndex``,
+        or the path of a persisted directory of either format (``index.store``,
+        the JAX package's too) read through ``load_index_auto`` onto the
+        serving retriever's device. A sharded directory loads every shard of
+        the set, so all shards flip together under the one epoch bump. Needs
+        ``retriever_factory``; load, build and warm-up all happen on the
+        calling thread, so a failing load or shard build raises HERE and the
+        engine keeps serving on the old retriever."""
+        from repro_torch.index.store import load_index_auto
 
         if self.retriever_factory is None:
             raise RuntimeError("swap_index needs retriever_factory= at engine construction")
         if isinstance(path_or_index, (str, os.PathLike)):
             path_or_index = load_index_auto(os.fspath(path_or_index), mmap=True,
                                             device=_retriever_device(self.retriever))
-        if isinstance(path_or_index, ShardedIndex):
-            raise NotImplementedError(f"swap_index of a sharded index set: {SHARDED_SERVING_MISSING}")
         return self.swap_retriever(self.retriever_factory(path_or_index), warm=warm)
 
     def shutdown(self) -> None:

@@ -79,7 +79,7 @@ def test_build_recommended_defaults_and_runner_contract(tiny_corpus):
     retr.warmup([(2, 16)])
     resp = retr.search(SearchRequest(*queries[0]))
     assert resp.doc_ids.shape == (10,) and np.isfinite(resp.scores).all()
-    assert retr.n_traces() == 0 and list_backends() == ["exact", "local"]
+    assert retr.n_traces() == 0 and list_backends() == ["exact", "local", "shard_map", "sharded"]
 
 
 def test_default_device_needs_a_card(tiny_index, monkeypatch):

@@ -181,8 +181,9 @@ def test_expected_fingerprint_mismatch_raises(saved):
 
 
 def test_a_sharded_directory_raises_and_names_what_is_missing(tiny_index, tmp_path):
-    """The store reads a sharded set now (``load_index_auto``); ``load_index``
-    refuses one as JAX's does, and serving one waits for a sharded backend."""
+    """``load_index`` refuses a sharded set as JAX's does, and so does a
+    local-backend engine's ``swap_index``, naming the backends that serve one
+    (before anything flips); ``Retriever.load`` serves it sharded."""
     directory = str(tmp_path / "sharded")
     jax_store.save_sharded_index(directory, tiny_index, 2)
     with pytest.raises(jax_store.IndexStoreError, match="not an index manifest") as jax_err:
@@ -190,12 +191,11 @@ def test_a_sharded_directory_raises_and_names_what_is_missing(tiny_index, tmp_pa
     with pytest.raises(store.IndexStoreError, match="not an index manifest") as port_err:
         store.load_index(directory, device="cpu")
     assert str(port_err.value) == str(jax_err.value)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        Retriever.load(directory, device="cpu")
+    assert Retriever.load(directory, device="cpu").backend_name == "sharded"
     retr = Retriever.from_index(from_arrays(tiny_index, "cpu"), StaticConfig(gamma=8, gamma0=2), device="cpu")
     engine = retr.serve(max_batch=4)
     try:
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        with pytest.raises(ValueError, match="backend 'local' serves one LSPIndex; a sharded index set needs"):
             engine.swap_index(directory)
         assert engine.epoch == 0 and engine.retriever is retr._backend  # nothing flipped
         request = SearchRequest(np.array([1, 2, 3], np.int32), np.ones(3, np.float32))
