@@ -45,7 +45,17 @@ host loop; builds a dense index
 of 1,000,000 synthetic 64-dim candidate embeddings on the card and answers
 256 query rows with ``retrieve_dense`` (kernel path, ``impl="ref"``,
 exhaustive) and through the dense index cut into 4 shards (recall@10
-against single-device, dequant_matmul on every shard); holds each kernel against its plain version again at the shapes
+against single-device, dequant_matmul on every shard); trains the SPLADE
+encoder at full width (``splade_100m_config``, 110 M parameters) through the
+launcher's ``--splade`` job, bf16 compute, with falling ``ce``, checkpoints a
+second run at step 10, restores it in a fresh ``Trainer`` and runs it to 20
+against the straight run, probes the step under
+``torch.use_deterministic_algorithms``, holds one float32 batch on the card
+to the CPU port, encodes 65,536 documents and 256 queries on the card,
+sparsifies them there, builds an index of the learned vectors with
+``build_index`` and answers the 256 queries in four ``search_batch`` calls of
+64 at lsp0 (kernels counted) against ``impl="ref"`` and exact, with
+``estimate_theta`` and the γ analysis beside the synthetic index's; holds each kernel against its plain version again at the shapes
 its path gave it and times both with CUDA events (median of 20, L2 flushed):
 sbmax at each of its call sites (phase 1, SBavg, bmp's BoundSum; a row each,
 with a ``zero_()`` of its output as the floor), doc_score_fwd and doc_score_flat at the block ids and mask of round 0
@@ -59,7 +69,8 @@ padded past what shared memory holds, so every lookup goes to L2; times
 idle share). Each path's launch counts are set to 0 just before it
 runs and read just after. The second-to-last line is a JSON object of
 per-kernel numbers (with a ``"path": "sharded"`` row for each kernel of the
-sharded paths, over its per-shard launches), the last ``{"ok": true, ...}``.
+sharded paths, over its per-shard launches, and a ``"path": "encoder"`` row
+for each kernel of the learned index's path), the last ``{"ok": true, ...}``.
 Any failed check raises and exits non-zero; without a CUDA device it exits 1
 before printing any result. It imports neither JAX nor the JAX package.
 """
@@ -105,6 +116,17 @@ N_SHARDS = 3  # a ragged last shard, and an unaligned cut of the superblock matr
 SHARDED_BLOCK_BUDGET, SHARDED_BUDGET_ETA = 64, 4.0
 DENSE_SHARDS = 4  # the dense index's 984 superblocks cut evenly
 RANK_TIMEOUT_S = 300  # a process-group rank that sends nothing in this time fails the run
+# encoder phase: splade_100m_config at vocab 32,768, the JAX launcher's --splade job
+# (batch 64, AdamW lr 3e-4, warmup 10, bf16 compute); 65,536 documents encoded
+# and indexed, the top 64 terms a document and 32 a query above 1e-4, as
+# examples/train_sparse_encoder.py; lsp0 at a quarter of the superblocks, as the example
+ENC_STEPS, ENC_BATCH, ENC_WARMUP = 240, 64, 5
+ENC_RESUME_AT = 20  # the resume check: a run checkpointed at 10, restored and run to 20, against the straight run
+ENC_DOCS, ENC_ENCODE_BATCH, ENC_TOP_DOC, ENC_TOP_Q, ENC_MIN_WEIGHT = 65_536, 1024, 64, 32, 1e-4
+ENC_GAMMA_DIV = 4
+ENC_DEVICE_RTOL = 1e-4  # float32 on both devices (TF32 off), sums in another order
+ENC_RESUME_ATOL = 1e-3  # a few AdamW steps of lr 3e-4, if an op were nondeterministic
+BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16
 # name -> (core.ops attribute, CUDA source, the TPU kernel it replaces)
 KERNELS = {
     "sbmax": ("sbmax_kernel", "src/repro_torch/csrc/sbmax.cu", "src/repro/kernels/sbmax/kernel.py:51"),
@@ -1492,6 +1514,261 @@ def sharded_phase(retr, batches, responses, shards, sharded_dir, single_dir, dev
             f"{statistics.median(res['batch_ms']):.2f} ms median (host clock)")
     return launches, first_calls
 
+def _top_terms(vecs, top):
+    """Each row's ``top`` largest term weights above ENC_MIN_WEIGHT, on the
+    device: (terms a row, term ids, weights), rows in order."""
+    import torch
+
+    vals, ids = torch.topk(vecs, top, dim=1)
+    keep = vals > ENC_MIN_WEIGHT
+    return keep.sum(dim=1), ids[keep].to(torch.int32), vals[keep]
+
+
+def encoder_step_flops(cfg, batch):
+    """The model FLOPs of one training step of the encoder on ``batch`` query
+    and document pairs: eval/model_flops.py's 6·N·tokens, plus attention over
+    the whole sequence (bidirectional: no causal half), x3 for the backward."""
+    from repro_torch.eval.model_flops import lm_active_params
+    from repro_torch.launch.train import SPLADE_D_LEN, SPLADE_Q_LEN
+
+    hd = cfg.resolved_head_dim()
+    flops = 0.0
+    for seq in (SPLADE_Q_LEN, SPLADE_D_LEN):
+        tokens = batch * seq
+        flops += 6.0 * lm_active_params(cfg) * tokens + cfg.n_layers * 3.0 * 2.0 * 2.0 * cfg.n_heads * hd * tokens * seq
+    return flops
+
+
+def gamma_reading(idx, queries, vocab, exact_ids, gamma, device):
+    """The paper's γ analysis on an index (print only): the share of the
+    exact top-k documents' superblocks that rank in the top γ by SBMax, and
+    P_γ(R) from gamma_analysis (the γ-th ranked superblock holds a top-k doc)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import ops
+    from repro_torch.core.gamma_analysis import (
+        contains_topk, p_contains_topk_by_bin, p_gamma_contains, sbmax_ratio_distribution,
+    )
+    from repro_torch.core.query import make_query_batch
+
+    qb = make_query_batch(queries, vocab, device=device)
+    sbm = ops.sbmax(idx.sb_bounds, qb.tids, qb.ws, "ref")
+    in_top = torch.zeros_like(sbm, dtype=torch.bool).scatter_(1, torch.topk(sbm, gamma, dim=1).indices, True)
+    contains = contains_topk(idx, exact_ids)
+    share = float((contains & in_top.cpu().numpy()).sum() / max(contains.sum(), 1))
+    edges, cdf, ratios = sbmax_ratio_distribution(sbm.cpu().numpy().astype(np.float64))
+    p_bin = p_contains_topk_by_bin(ratios, contains, edges)
+    return share, float(p_gamma_contains(np.array([gamma]), idx.n_superblocks, edges, cdf, p_bin)[0])
+
+
+def encoder_phase(device, core_ops, sites):
+    """The SPLADE encoder at full width (splade_100m_config, vocab 32,768),
+    through the launcher's --splade job: ENC_STEPS bf16-compute steps with
+    falling ce; a second run of the same job checkpointed at step
+    ENC_RESUME_AT / 2, restored in a fresh Trainer and run to ENC_RESUME_AT,
+    against the straight run there (to the bit, see the determinism probe);
+    one float32 batch on the card against the CPU port; then
+    ENC_DOCS documents and N_QUERIES queries encoded on the card, sparsified
+    there, indexed with build_index and searched in four search_batch calls
+    of 64 at lsp0 (counted) against impl="ref" and exact. Returns (launches,
+    captured calls) of the path's kernels."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import Retriever, SearchRequest
+    from repro_torch.common.tree_utils import flatten_with_paths, global_norm, param_count, tree_cast, tree_map
+    from repro_torch.core.config import DynamicParams, StaticConfig
+    from repro_torch.core.query import make_query_batch
+    from repro_torch.core.threshold import estimate_theta
+    from repro_torch.data.pipeline import CounterPipeline, PipelineConfig, splade_synthetic_batch
+    from repro_torch.eval.metrics import recall_vs_oracle
+    from repro_torch.index.builder import IndexBuildConfig, build_index
+    from repro_torch.launch.train import SPLADE_D_LEN, SPLADE_Q_LEN, splade_job
+    from repro_torch.models.sparse_encoder import SpladeBatch, encoder_forward, splade_loss
+
+    t_phase = time.perf_counter()
+    # ---- a. the straight run
+    cfg, trainer, pipe = splade_job(ENC_STEPS, ENC_BATCH, device=device)
+    state = trainer.init_or_restore()
+    n_params = param_count(state.params)
+    log(f"encoder: {cfg}; {n_params:,} parameters; AdamW lr 3e-4, warmup 10, {ENC_STEPS} steps of "
+        f"{ENC_BATCH} pairs ({SPLADE_Q_LEN} + {SPLADE_D_LEN} tokens), bf16 compute, float32 master weights")
+    check(100e6 < n_params < 120e6, f"the full-width encoder has {n_params} parameters")
+    ces, stamps = [], []
+
+    def on_step(step, metrics):
+        ces.append(float(metrics["ce"]))  # waits for the step
+        stamps.append(time.perf_counter())
+
+    resident_gb = torch.cuda.memory_allocated(device) / 1e9  # the model, its moments and what earlier phases hold
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    state = trainer.run(state, pipe, ENC_RESUME_AT, log_every=0, on_step=on_step)
+    at_resume = tree_map(lambda x: x.clone(), state)  # the straight run at step ENC_RESUME_AT
+    straight = trainer.run(state, pipe, ENC_STEPS - ENC_RESUME_AT, log_every=0, on_step=on_step)
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    stamps.insert(ENC_RESUME_AT, None)  # the snapshot between the two calls is no step
+    step_s = statistics.median(b - a for a, b in zip(stamps[ENC_WARMUP:], stamps[ENC_WARMUP + 1:])
+                               if a is not None and b is not None)
+    first, last = float(np.mean(ces[:5])), float(np.mean(ces[-5:]))
+    flops = encoder_step_flops(cfg, ENC_BATCH)
+    log(f"encoder training: ce first 5 steps {first:.4f} (ln {ENC_BATCH} = {np.log(ENC_BATCH):.4f}), last 5 "
+        f"{last:.4f}; every 20th: {[round(c, 3) for c in ces[::20]]}")
+    log(f"encoder train step: median {step_s * 1e3:.2f} ms (steps {ENC_WARMUP + 2}-{ENC_STEPS}, host clock, "
+        f"each step ends in a read of ce), {ENC_BATCH * (SPLADE_Q_LEN + SPLADE_D_LEN) / step_s:,.0f} tokens/s, "
+        f"{flops / 1e12:.3f} model TFLOP a step -> {flops / step_s / 1e12:.1f} TFLOP/s, "
+        f"{flops / step_s / BF16_FLOP_PER_S:.3f} of the H100's dense bf16 peak; peak device memory {peak_gb:.2f} GB, "
+        f"{resident_gb:.2f} GB of it allocated before the first step")
+    check(last < first, f"ce does not fall: first 5 steps {first}, last 5 {last}")
+
+    # ---- b. determinism probe: one step under torch.use_deterministic_algorithms(True)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    probe = tree_map(lambda x: x.clone(), straight)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in pipe.batch_at(ENC_STEPS).items()}
+    torch.use_deterministic_algorithms(True)
+    try:
+        trainer.step_fn(probe, batch)
+        torch.cuda.synchronize(device)
+        flagged = "none: no op of the step is flagged nondeterministic"
+    except RuntimeError as e:
+        flagged = str(e).splitlines()[0][:300]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    log(f"encoder determinism probe (a step under use_deterministic_algorithms(True)): {flagged}")
+    profile_call("encoder train step", lambda: float(trainer.step_fn(probe, batch)[1]["ce"]))
+    del probe
+
+    # ---- c. checkpoint half way, restore in a fresh Trainer, run on
+    tmp = tempfile.mkdtemp()
+    try:
+        ck = os.path.join(tmp, "ckpt")
+        _, t_a, pipe_a = splade_job(ENC_STEPS, ENC_BATCH, device=device, ckpt_dir=ck, ckpt_every=ENC_STEPS)
+        a_stamps = []
+        t_a.run(t_a.init_or_restore(), pipe_a, ENC_RESUME_AT // 2, log_every=0,
+                on_step=lambda step, m: (float(m["loss"]), a_stamps.append(time.perf_counter())))
+        save_s = time.perf_counter() - a_stamps[-1]
+        ck_gb = sum(os.path.getsize(os.path.join(dp, f)) for dp, _, fs in os.walk(ck) for f in fs) / 1e9
+        _, t_b, pipe_b = splade_job(ENC_STEPS, ENC_BATCH, device=device, ckpt_dir=ck, ckpt_every=ENC_STEPS)
+        t0 = time.perf_counter()
+        resumed = t_b.init_or_restore()
+        restore_s = time.perf_counter() - t0
+        check(int(resumed.step) == ENC_RESUME_AT // 2, f"restored step {int(resumed.step)}")
+        resumed = t_b.run(resumed, pipe_b, ENC_RESUME_AT - ENC_RESUME_AT // 2, log_every=0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    a, b = flatten_with_paths(at_resume), flatten_with_paths(resumed)
+    del at_resume
+    differ = {k: float((a[k].double() - b[k].double()).abs().max()) for k in a if not torch.equal(a[k], b[k])}
+    log(f"encoder checkpoint at step {ENC_RESUME_AT // 2}: {ck_gb:.3f} GB written in {save_s:.1f} s (save at the "
+        f"end of the run), restored in a fresh Trainer in {restore_s:.1f} s; resumed run vs straight run after "
+        f"{ENC_RESUME_AT} steps: {len(a) - len(differ)} of {len(a)} leaves equal to the bit"
+        + (f"; largest difference {max(differ.values()):.3g} in {max(differ, key=differ.get)}" if differ else ""))
+    check(not differ or max(differ.values()) <= ENC_RESUME_ATOL,
+          f"the resumed run is more than {ENC_RESUME_ATOL} from the straight run: {differ}")
+
+    # ---- d. one float32 batch on the card and on the CPU (the path the tests hold to JAX)
+    fbatch = pipe.batch_at(0)
+
+    def loss_and_norm(dev):
+        p = tree_map(lambda x: x.detach().to(dev, torch.float32, copy=True).requires_grad_(), straight.params)
+        bt = {k: torch.from_numpy(v).to(dev) for k, v in fbatch.items()}
+        loss, _ = splade_loss(p, cfg, SpladeBatch(bt["q_tokens"], bt["q_mask"], bt["d_tokens"], bt["d_mask"]))
+        grads = torch.autograd.grad(loss, list(flatten_with_paths(p).values()))
+        return float(loss.detach()), float(global_norm(grads))
+
+    t0 = time.perf_counter()
+    cpu_loss, cpu_norm = loss_and_norm(torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    card_loss, card_norm = loss_and_norm(device)
+    log(f"encoder float32 batch: loss card {card_loss:.7f} vs CPU {cpu_loss:.7f}, gradient norm card "
+        f"{card_norm:.7f} vs CPU {cpu_norm:.7f} (CPU {cpu_s:.1f} s); tolerance rtol {ENC_DEVICE_RTOL}")
+    check(abs(card_loss - cpu_loss) <= ENC_DEVICE_RTOL * abs(cpu_loss), "encoder loss on the card vs the CPU")
+    check(abs(card_norm - cpu_norm) <= ENC_DEVICE_RTOL * abs(cpu_norm), "gradient norm on the card vs the CPU")
+
+    # ---- e. encode ENC_DOCS documents and N_QUERIES queries on the card, sparsify there
+    params = tree_cast(straight.params, torch.bfloat16)  # the compute dtype the encoder was trained in
+    docs = CounterPipeline(PipelineConfig(global_batch=ENC_ENCODE_BATCH, seed=1),
+                           splade_synthetic_batch(cfg.vocab, ENC_ENCODE_BATCH, SPLADE_Q_LEN, SPLADE_D_LEN))
+    parts, host_s = [], 0.0
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for i in range(ENC_DOCS // ENC_ENCODE_BATCH):
+            th = time.perf_counter()
+            b = docs.batch_at(i)
+            host_s += time.perf_counter() - th
+            if i == 0:
+                qtok, qmask = b["q_tokens"][:N_QUERIES], b["q_mask"][:N_QUERIES]  # their positives are docs 0-255
+            dv = encoder_forward(params, cfg, torch.from_numpy(b["d_tokens"]).to(device),
+                                 torch.from_numpy(b["d_mask"]).to(device))
+            parts.append(_top_terms(dv, ENC_TOP_DOC))
+        qv = encoder_forward(params, cfg, torch.from_numpy(qtok).to(device), torch.from_numpy(qmask).to(device))
+        q_lens, q_tids, q_ws = (t.cpu().numpy() for t in _top_terms(qv, ENC_TOP_Q))
+        lens, tids, ws = (torch.cat([p[j] for p in parts]).cpu().numpy() for j in range(3))
+    encode_s = time.perf_counter() - t0 - host_s
+    doc_ptr = np.zeros(ENC_DOCS + 1, np.int64)
+    np.cumsum(lens, out=doc_ptr[1:])
+    q_ptr = np.concatenate([[0], np.cumsum(q_lens)])
+    queries = [(q_tids[q_ptr[i]: q_ptr[i + 1]], q_ws[q_ptr[i]: q_ptr[i + 1]]) for i in range(N_QUERIES)]
+    log(f"encoded {ENC_DOCS} documents and {N_QUERIES} queries on the card (bf16) in {encode_s:.2f} s "
+        f"({ENC_DOCS / encode_s:,.0f} docs/s; host batch synthesis {host_s:.2f} s excluded); terms a document "
+        f"mean {lens.mean():.1f} (min {lens.min()}), a query mean {q_lens.mean():.1f}")
+    check(lens.min() > 0 and q_lens.min() > 0, "every document and query keeps a term above the floor")
+
+    # ---- f. index the learned vectors on the card, search at lsp0, counted
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    idx = build_index(doc_ptr, tids, ws, cfg.vocab, IndexBuildConfig(), device=device)
+    torch.cuda.synchronize(device)
+    build_s = time.perf_counter() - t0
+    sites.update({getattr(idx, attr).packed.data_ptr(): site for site, attr in SBMAX_SITES.items()})
+    gamma = max(8, idx.n_superblocks // ENC_GAMMA_DIV)
+    scfg = StaticConfig(variant="lsp0", gamma=gamma, gamma0=4, k_max=K)
+    log(f"learned index built on the card in {build_s:.2f} s: {idx.n_blocks} blocks, {idx.n_superblocks} "
+        f"superblocks; lsp0 at gamma = {gamma} (1/{ENC_GAMMA_DIV} of the superblocks), gamma0 4, k 10")
+    retr = Retriever.from_index(idx, scfg, device=device)
+    requests = [SearchRequest(t, w) for t, w in queries]
+    batches = [requests[i: i + BATCH] for i in range(0, N_QUERIES, BATCH)]
+    kernels = ["sbmax", "boundsum_gather", "doc_score_fwd"]
+    captured = capture(core_ops, kernels, lambda: retr.search_batch(batches[0]))
+    resp, launches, by_site = counted(core_ops, lambda: [r for bt in batches for r in retr.search_batch(bt)], sites)
+    log(f"encoder path: launches during the 4 search_batch calls: {launches}; sbmax by call site {by_site}")
+    for key in kernels:
+        check(launches[key] > 0, f"kernel {key} was never launched on the encoder path")
+    ids = np.stack([r.doc_ids for r in resp])
+    check(ids.shape == (N_QUERIES, K) and np.isfinite(np.stack([r.scores for r in resp])).all(),
+          "encoder path result shape / finite scores")
+    ref = Retriever.from_index(idx, scfg, impl="ref", device=device)
+    ref_resp = [r for bt in batches for r in ref.search_batch(bt)]
+    same_counters = all((x.n_superblocks_visited, x.n_blocks_scored) == (y.n_superblocks_visited, y.n_blocks_scored)
+                        for x, y in zip(resp, ref_resp))
+    same_ids = bool((ids == np.stack([r.doc_ids for r in ref_resp])).all())
+    exact = Retriever.from_index(idx, scfg, backend="exact", device=device)
+    exact_resp = [r for bt in batches for r in exact.search_batch(bt)]
+    exact_ids = np.stack([r.doc_ids for r in exact_resp])
+    kth = np.stack([r.scores for r in exact_resp])[:, K - 1]
+    theta = estimate_theta(idx, make_query_batch(queries, cfg.vocab, device=device), K).cpu().numpy()
+    whole = Retriever.from_index(idx, scfg, params=DynamicParams(k=K, beta=1.0), device=device)
+    whole_resp = [r for bt in batches for r in whole.search_batch(bt)]
+    log(f"encoder path kernel vs impl='ref' ({N_QUERIES} queries): ids identical {same_ids}, counters equal "
+        f"{same_counters}; lsp0 recall@10 vs exact {recall_vs_oracle(ids, exact_ids):.4f}; mean superblocks "
+        f"visited {np.mean([r.n_superblocks_visited for r in resp]):.1f} / {idx.n_superblocks}, blocks scored "
+        f"{np.mean([r.n_blocks_scored for r in resp]):.1f}; at beta 1 (bounds over every query term): recall@10 "
+        f"{recall_vs_oracle(np.stack([r.doc_ids for r in whole_resp]), exact_ids):.4f}, superblocks visited "
+        f"{np.mean([r.n_superblocks_visited for r in whole_resp]):.1f}; estimate_theta at or below the true 10th "
+        f"score: {float(np.mean(theta <= kth)):.3f}")
+    check(same_ids and same_counters, "encoder path: kernel and ref paths return the same ids and counters")
+    call_ms = [host_ms(lambda: retr.search_batch(bt)) for _ in range(3) for bt in batches]
+    log(f"search_batch of {BATCH} on the learned index: median {statistics.median(call_ms):.2f} ms over "
+        f"{len(call_ms)} calls (kernel path)")
+    profile_call(f"search_batch on the learned index ({BATCH} requests)", lambda: retr.search_batch(batches[0]))
+    share, p_gamma = gamma_reading(idx, queries, cfg.vocab, exact_ids, gamma, device)
+    log(f"gamma analysis on the learned index at gamma {gamma}: exact top-10 superblocks in the top gamma by "
+        f"SBMax {share:.4f}, P_gamma(R) {p_gamma:.4f}")
+    log(f"encoder phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, captured
+
 
 def main() -> int:
     import torch
@@ -1613,6 +1890,9 @@ def smoke(device) -> int:
     blocks = float(np.mean([r.n_blocks_scored for r in responses]))
     log(f"lsp0 recall@10 vs exact: {rec_exact:.4f} (exact backend {exact_s:.1f} s for {N_QUERIES}); "
         f"mean superblocks visited {visited:.1f} / {idx.n_superblocks}, blocks scored {blocks:.1f}")
+    share, p_gamma = gamma_reading(idx, queries, VOCAB, exact_ids, retr.static_cfg.gamma, device)
+    log(f"gamma analysis on the synthetic index at gamma {retr.static_cfg.gamma}: exact top-10 superblocks in the "
+        f"top gamma by SBMax {share:.4f}, P_gamma(R) {p_gamma:.4f}")
 
     # ---- 7a. the same requests under the flat document layout
     cfg = retr.static_cfg
@@ -1656,6 +1936,11 @@ def smoke(device) -> int:
     captured.update(dense_captured)
     sharded_launches["dequant_matmul"] = dense_sharded_launches
     sharded_calls["dequant_matmul"] = dense_sharded_calls
+    torch.cuda.empty_cache()
+
+    # ---- 7g. the SPLADE encoder: train, checkpoint, encode, index the learned vectors, retrieve
+    encoder_launches, encoder_calls = encoder_phase(device, core_ops, sites)
+    torch.cuda.empty_cache()
 
     # ---- 8. each kernel vs its plain version at its path's shapes, timed
     flush = torch.empty(128 * 2**20, dtype=torch.float32, device=device)
@@ -1693,6 +1978,10 @@ def smoke(device) -> int:
         check(sharded_calls[key], f"no captured call of {key} on a sharded path")
         groups.append((key, "phase 1" if key == "sbmax" else None, sharded_calls[key], sharded_launches[key],
                        "sharded"))
+    # and a row per kernel of the encoder path (the learned index), launches counted on that path
+    for key in ("sbmax", "boundsum_gather", "doc_score_fwd"):
+        groups.append((key, "phase 1" if key == "sbmax" else None, encoder_calls[key], encoder_launches[key],
+                       "encoder"))
 
     rows = []
     for key, site, calls, n_launches, path in groups:

@@ -1,8 +1,9 @@
 """The process-group transports of the sharded paths, on gloo worlds of 2 and
 3 ranks (the 3-rank world cuts the 32-superblock tiny index raggedly).
 
-Each world is spawned once (``torch_mesh_worker.spawn_world``, a timeout on
-every process) and runs every case on every rank:
+Each world is spawned once (``torch_mesh_worker.spawn_world``: a file store,
+a wait that runs from the last report of any rank, an ordered teardown) and
+runs every case on every rank:
   * the process-group ``ShardedRetriever`` (each rank loading only its shard
     from a set the JAX package saved, and each rank cutting its own shard of
     the index) equal to the host loop on all nine result fields, on every
@@ -102,7 +103,8 @@ def world(request, tiny_index, tiny_corpus, dense, tmp_path_factory):
         dense_cfg=_dense_cfg(n),
         dense_q=q,
     )
-    return n, spawn_world(n, spec), spec
+    (root / "world").mkdir()
+    return n, spawn_world(n, spec, str(root / "world")), spec
 
 
 def _port_index(tiny_index):

@@ -1,10 +1,19 @@
 """Rank body of the process-group tests (``test_torch_sharded_mesh.py``).
 
-``spawn_world(world, spec)`` starts ``world`` processes with the ``spawn``
-method, each joining one gloo process group over ``tcp://127.0.0.1``, runs
-every case of ``spec`` on every rank in that one world, and returns each
-rank's results (host numpy arrays) by rank. Every wait has a timeout; a rank
-that fails or hangs fails the call, and every process is stopped.
+``spawn_world(world, spec, root)`` starts ``world`` processes with the
+``spawn`` method, each joining one gloo process group through a file store
+under ``root``, runs every case of ``spec`` on every rank in that one world,
+and returns each rank's results (host numpy arrays) by rank.
+
+Every rank reports as it goes (joined, each case done, its result), and the
+parent's wait runs from the last report of any rank, so a world on a loaded
+host takes as long as it needs while a rank that stalls still fails the call.
+The ranks meet at a barrier after their last collective, so none tears its
+process group down while another is still in one, and then each destroys its
+group. A rank that raises sends its traceback; a rank that dies writes a
+fault dump (``faulthandler``) to a file under ``root``; either reaches the
+error the call raises, with the rank's number and exit code. Every process
+is stopped before the call returns.
 
 This module imports torch and the port only, so a rank starts without JAX.
 """
@@ -12,24 +21,18 @@ This module imports torch and the port only, so a rank starts without JAX.
 from __future__ import annotations
 
 import multiprocessing as mp
+import os
 import queue
-import socket
 import traceback
 
-RANK_TIMEOUT_S = 120
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+RANK_TIMEOUT_S = 120  # the longest a world may go without a report from any rank
 
 
 def _fields(res) -> dict:
     return {f: getattr(res, f).cpu().numpy() for f in res._fields}
 
 
-def _run_cases(spec: dict) -> dict:
+def _run_cases(spec: dict, report) -> dict:
     import torch
     import torch.distributed as dist
 
@@ -54,6 +57,7 @@ def _run_cases(spec: dict) -> dict:
         out[f"dir/{name}"] = _fields(own(qb, dyn))
         cut = ShardedRetriever(index, scfg, group=dist.group.WORLD, impl="ref")  # each rank cuts its shard
         out[f"cut/{name}"] = _fields(cut(qb, dyn))
+        report(name)
 
     retr = Retriever.load(spec["sharded_dir"], StaticConfig(**spec["configs"][0][1]), group=dist.group.WORLD,
                           impl="ref", device="cpu")
@@ -61,16 +65,19 @@ def _run_cases(spec: dict) -> dict:
     out["facade"] = {"backend": retr.backend_name,
                      "doc_ids": [r.doc_ids for r in resp], "theta": [r.theta for r in resp],
                      "shard_candidates": [r.shard_candidates for r in resp]}
+    report("facade")
 
     scores = torch.from_numpy(spec["topk_scores"])
     n_local = scores.shape[1] // world
     vals, ids = distributed_topk(scores[:, rank * n_local: (rank + 1) * n_local], spec["topk_k"])
     out["topk"] = (vals.numpy(), ids.numpy())
     out["pmax"] = pmax_scalar(torch.tensor([float(rank), -float(rank)])).numpy()
+    report("topk")
 
     mesh_run, _ = make_mesh_retriever(shard_index(index, world), RetrievalConfig(**spec["mesh_cfg"]),
                                       group=dist.group.WORLD, impl="ref")
     out["mesh"] = tuple(t.numpy() for t in mesh_run(qb))
+    report("mesh")
 
     dense_shards = torch.load(spec["dense_shards"], weights_only=False)
     dense_run = make_sharded_dense_retriever(dense_shards, RetrievalConfig(**spec["dense_cfg"]),
@@ -79,41 +86,52 @@ def _run_cases(spec: dict) -> dict:
     return out
 
 
-def _rank_main(rank: int, world: int, port: int, spec: dict, results) -> None:
+def _rank_main(rank: int, world: int, root: str, spec: dict, results) -> None:
+    import faulthandler
+
     import torch
     import torch.distributed as dist
 
+    fault_log = open(_fault_path(root, rank), "w")  # left open: the dump may come as late as the process's exit
+    faulthandler.enable(fault_log, all_threads=True)
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank)
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(root, 'store')}", world_size=world, rank=rank)
+    results.put((rank, "joined", None))
     try:
-        results.put((rank, _run_cases(spec), None))
+        out = _run_cases(spec, lambda case: results.put((rank, "progress", case)))
+        dist.barrier()  # every rank is past its last collective before any tears its group down
     except BaseException:  # reported to the parent, then re-raised
-        results.put((rank, None, traceback.format_exc()))
+        results.put((rank, "error", traceback.format_exc()))
         raise
     finally:
         dist.destroy_process_group()
+    results.put((rank, "result", out))
 
 
-def spawn_world(world: int, spec: dict) -> dict:
-    """Run every case of ``spec`` on ``world`` gloo ranks; {rank: results}."""
+def _fault_path(root: str, rank: int) -> str:
+    return os.path.join(root, f"rank{rank}.fault")
+
+
+def spawn_world(world: int, spec: dict, root: str) -> dict:
+    """Run every case of ``spec`` on ``world`` gloo ranks; {rank: results}.
+    ``root`` is an empty directory for the world's store and fault dumps."""
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
-    port = _free_port()
-    procs = [ctx.Process(target=_rank_main, args=(r, world, port, spec, results)) for r in range(world)]
+    procs = [ctx.Process(target=_rank_main, args=(r, world, root, spec, results)) for r in range(world)]
     for p in procs:
         p.start()
     got, errors = {}, []
     try:
-        for _ in procs:  # drain before joining
+        while len(got) < world and not errors:  # drain before joining
             try:
-                rank, res, err = results.get(timeout=RANK_TIMEOUT_S)
+                rank, kind, payload = results.get(timeout=RANK_TIMEOUT_S)
             except queue.Empty:
-                errors.append(f"a rank sent nothing within {RANK_TIMEOUT_S} s")
+                errors.append(f"no rank reported within {RANK_TIMEOUT_S} s; results from ranks {sorted(got)}")
                 break
-            if err is not None:
-                errors.append(f"rank {rank}:\n{err}")
-                break
-            got[rank] = res
+            if kind == "error":
+                errors.append(f"rank {rank}:\n{payload}")
+            elif kind == "result":
+                got[rank] = payload
         for p in procs:
             p.join(timeout=RANK_TIMEOUT_S if not errors else 5)
     finally:
@@ -121,9 +139,11 @@ def spawn_world(world: int, spec: dict) -> dict:
             if p.is_alive():
                 p.terminate()
                 p.join(timeout=10)
+    for rank, p in enumerate(procs):
+        if p.exitcode != 0:
+            path = _fault_path(root, rank)
+            dump = open(path).read().strip() if os.path.exists(path) else ""
+            errors.append(f"rank {rank} exited with {p.exitcode}" + (f"; its fault dump:\n{dump}" if dump else ""))
     if errors:
         raise RuntimeError("\n".join(errors))
-    bad = [p.exitcode for p in procs if p.exitcode != 0]
-    if bad:
-        raise RuntimeError(f"ranks exited with {bad}")
     return got
