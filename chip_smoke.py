@@ -55,7 +55,18 @@ to the CPU port, encodes 65,536 documents and 256 queries on the card,
 sparsifies them there, builds an index of the learned vectors with
 ``build_index`` and answers the 256 queries in four ``search_batch`` calls of
 64 at lsp0 (kernels counted) against ``impl="ref"`` and exact, with
-``estimate_theta`` and the γ analysis beside the synthetic index's; holds each kernel against its plain version again at the shapes
+``estimate_theta`` and the γ analysis beside the synthetic index's; serves
+decoder-only LMs through the stacked path, weights drawn on the card from a
+seeded CUDA generator (no kernel of this repository on that path): qwen3-4b at
+full width and depth (4,022,795,776 parameters), 64 float32 teacher-forced
+decode steps after a 2 x 512 prefill against one forward over 2 x 1,024, the
+same in bf16 against float32, its 2-layer cut against the CPU port, and bf16
+serving (a 4 x 4,096 prefill, 128 greedy decode steps, a 1 x 32,768 prefill;
+ms, tokens/s, peak GB, the profiler's kernels a decode step and idle share);
+gemma3-27b cut to 6 layers, a 2 x 1,536 prefill wrapping and rolling the
+ring buffer of its 1,024-token windows, against the forward; phi3.5-moe cut
+to 2 layers against the CPU port with its dropped choices counted, then bf16
+serving; holds each kernel against its plain version again at the shapes
 its path gave it and times both with CUDA events (median of 20, L2 flushed):
 sbmax at each of its call sites (phase 1, SBavg, bmp's BoundSum; a row each,
 with a ``zero_()`` of its output as the floor), doc_score_fwd and doc_score_flat at the block ids and mask of round 0
@@ -127,6 +138,22 @@ ENC_GAMMA_DIV = 4
 ENC_DEVICE_RTOL = 1e-4  # float32 on both devices (TF32 off), sums in another order
 ENC_RESUME_ATOL = 1e-3  # a few AdamW steps of lr 3e-4, if an op were nondeterministic
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16
+# LM phase: qwen3-4b at full width and depth; 2 sequences of 1,024 tokens from
+# lm_synthetic_batch, the first 512 prefilled and 64 decoded teacher-forced
+# against one forward over all 1,024
+LM_SEED, QWEN_PARAMS = 0, 4_022_795_776
+LM_SEQ, LM_PROMPT, LM_STEPS = 1024, 512, 64
+LM_F32_RTOL = 1e-4  # decode against the forward, tests/test_arch_smoke.py's bound; card against CPU the same
+# twice JAX's own bf16-vs-float32 gap (relative error norm of the decode logits)
+# at qwen3's 36 layers and the reduced widths, mean of 3 seeds 0.019450 (tests/lm_bf16_gap.py)
+LM_BF16_GAP = 0.0389
+# bf16 serving: train_4k's length at prefill_32k's batch of 32 cut to 4, 128
+# greedy steps (decode_32k's batch of 128 cut to 4, at a 4,224-token cache),
+# then prefill_32k's full length at batch 1
+LM_SERVE_BATCH, LM_SERVE_PROMPT, LM_SERVE_STEPS, LM_LONG = 4, 4096, 128, 32768
+LM_CPU_TOKENS = 128  # the 2-layer cut's forward, card against CPU
+LM_GEMMA_LAYERS, LM_GEMMA_SEQ, LM_GEMMA_PROMPT = 6, 2048, 1536  # one group: 5 sliding-window, 1 global
+LM_PHI_LAYERS, LM_PHI_TOKENS, LM_PHI_PROMPT, LM_PHI_STEPS = 2, 64, 1024, 32
 # name -> (core.ops attribute, CUDA source, the TPU kernel it replaces)
 KERNELS = {
     "sbmax": ("sbmax_kernel", "src/repro_torch/csrc/sbmax.cu", "src/repro/kernels/sbmax/kernel.py:51"),
@@ -1770,6 +1797,236 @@ def encoder_phase(device, core_ops, sites):
     return launches, captured
 
 
+def lm_rel_err(got, want):
+    """Largest absolute error over the largest |reference| (float64 on the card)."""
+    got, want = got.double(), want.double()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def lm_teacher_forced(params, cfg, tokens, prompt, steps, cache_dtype):
+    """The stacked prefill of tokens[:, :prompt], then ``steps`` decode steps
+    fed tokens[:, prompt + i]: the float32 logits of positions prompt-1 ..
+    prompt+steps-1, [B, steps + 1, V_pad]."""
+    import torch
+
+    from repro_torch.models import stacked
+
+    logits, state = stacked.lm_prefill_stacked(params, cfg, tokens[:, :prompt], prompt + steps, cache_dtype)
+    rows = [logits[:, -1].float()]
+    del logits
+    for i in range(steps):
+        out, state = stacked.lm_decode_step_stacked(params, cfg, tokens[:, prompt + i: prompt + i + 1], state)
+        rows.append(out[:, 0].float())
+    return torch.stack(rows, dim=1)
+
+
+def lm_decode_against_forward(label, params, cfg, tokens, prompt, steps):
+    """Float32 teacher-forced decode against one forward over ``tokens``:
+    every position's error within LM_F32_RTOL. Returns the decode logits."""
+    import torch
+
+    from repro_torch.models import stacked
+
+    t0 = time.perf_counter()
+    full, _ = stacked.lm_forward_stacked(params, cfg, tokens, remat=False)
+    want = full[:, prompt - 1: prompt + steps].float()
+    del full
+    got = lm_teacher_forced(params, cfg, tokens, prompt, steps, torch.float32)
+    errs = [lm_rel_err(got[:, i], want[:, i]) for i in range(steps + 1)]
+    log(f"lm: {label}: prefill {tuple(tokens[:, :prompt].shape)} + {steps} teacher-forced decode steps against "
+        f"one forward over {tuple(tokens.shape)}, float32: max error / max |logit| {max(errs):.3g} (prefill row "
+        f"{errs[0]:.3g}; bound {LM_F32_RTOL}) in {time.perf_counter() - t0:.1f} s")
+    check(max(errs) <= LM_F32_RTOL, f"{label}: decode against the forward {max(errs)} > {LM_F32_RTOL}")
+    return got
+
+
+def lm_card_vs_cpu(label, cfg, tokens, device):
+    """The same weights (drawn on the card) forward on the card and on the
+    CPU port, float32: within LM_F32_RTOL. Returns the MoE inputs the card
+    run recorded ({layer's router data pointer: (params, x)})."""
+    import torch
+
+    from repro_torch.common.tree_utils import tree_map
+    from repro_torch.models import ffn, stacked
+
+    params = stacked.init_lm_stacked(cfg, torch.Generator(device=device).manual_seed(LM_SEED), device=device)
+    moe_calls = []
+    real = ffn.moe_ffn
+    ffn.moe_ffn = lambda p, moe, x: moe_calls.append((p, moe, x)) or real(p, moe, x)
+    try:
+        card, _ = stacked.lm_forward_stacked(params, cfg, tokens.to(device), remat=False)
+    finally:
+        ffn.moe_ffn = real
+    cpu_params = tree_map(lambda x: x.cpu(), params)
+    t0 = time.perf_counter()
+    cpu, _ = stacked.lm_forward_stacked(cpu_params, cfg, tokens.cpu(), remat=False)
+    err = lm_rel_err(card.cpu(), cpu)
+    log(f"lm: {label}: {cfg.n_layers} layers at full width, forward {tuple(tokens.shape)} on the card against the "
+        f"CPU port on the same weights, float32: max error / max |logit| {err:.3g} (bound {LM_F32_RTOL}; CPU "
+        f"{time.perf_counter() - t0:.1f} s)")
+    check(err <= LM_F32_RTOL, f"{label}: card against CPU {err} > {LM_F32_RTOL}")
+    return params, moe_calls
+
+
+def moe_dropped(p, moe, x):
+    """(choices dropped at the capacity, choices, capacity) of one moe_ffn call."""
+    import torch
+
+    from repro_torch.core.topk import stable_topk
+
+    s = x.shape[1]
+    cap = max(1, int(s * moe.top_k * moe.capacity_factor / moe.n_experts))
+    probs = torch.softmax((x @ p.router).float(), dim=-1)
+    _, idx = stable_topk(probs, moe.top_k)  # [B, S, k]
+    onehot = torch.nn.functional.one_hot(idx, moe.n_experts).reshape(x.shape[0], -1, moe.n_experts)
+    ahead = torch.cumsum(onehot, dim=1) - onehot  # the moe_ffn queue position of each choice
+    return int(((ahead >= cap) & (onehot > 0)).sum()), int(onehot.sum()), cap
+
+
+def lm_serve(label, params, cfg, batch, prompt, steps, device, seed):
+    """bf16 serving: one prefill of [batch, prompt] (ms), then ``steps``
+    greedy decode steps (argmax over the first vocab columns) on the cache it
+    wrote (ms a step; the first step untimed, the last two profiled), with
+    the step's bandwidth floor."""
+    import numpy as np
+    import torch
+
+    from repro_torch.common.tree_utils import param_bytes, tree_leaves
+    from repro_torch.data.pipeline import lm_synthetic_batch
+    from repro_torch.models import stacked
+
+    toks = torch.from_numpy(lm_synthetic_batch(cfg.vocab, batch, prompt)(np.random.default_rng(seed), 0)["tokens"])
+    toks = toks.to(device)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    logits, state = stacked.lm_prefill_stacked(params, cfg, toks, prompt + steps, torch.bfloat16)
+    tok = logits[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
+    torch.cuda.synchronize(device)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    del logits
+    box = {"state": state, "tok": tok}
+
+    def step():
+        out, box["state"] = stacked.lm_decode_step_stacked(params, cfg, box["tok"], box["state"])
+        box["tok"] = out[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
+
+    step()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for _ in range(steps - 3):
+        step()
+    torch.cuda.synchronize(device)
+    decode_ms = (time.perf_counter() - t0) * 1e3 / (steps - 3)
+    profile_call(f"{label} decode step (batch {batch})", lambda: (step(), box["tok"].cpu()))
+    check(int(box["state"].pos) == prompt + steps, f"{label}: {steps} decode steps after the prefill")
+    state = box["state"]
+    kv_bytes = sum(x.numel() * x.element_size() for x in tree_leaves((state.caches, state.tail_caches)))
+    floor_ms = (param_bytes(params) + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    log(f"lm: {label}, bf16: prefill {batch} x {prompt} in {prefill_ms:.1f} ms "
+        f"({batch * prompt / prefill_ms * 1e3:,.0f} tokens/s); decode {decode_ms:.2f} ms a step over {steps - 3} steps ({batch / decode_ms * 1e3:,.1f} tokens/s) "
+        f"at a {prompt + steps}-token cache; bandwidth floor of a step {floor_ms:.3f} ms (bf16 weights "
+        f"{param_bytes(params) / 1e9:.2f} GB + KV {kv_bytes / 1e9:.2f} GB over {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+
+
+def lm_phase(device):
+    """Decoder-only LM serving through the stacked path, the weights drawn on
+    the card from a seeded CUDA generator, each model freed before the next:
+    (a) qwen3-4b at full width and depth: float32 teacher-forced decode
+    against the forward, the same in bf16 against float32, the 2-layer cut
+    against the CPU port, and bf16 serving (4 x 4,096 prefill, 128 greedy
+    decode steps, a 1 x 32,768 prefill); (b) gemma3-27b cut to 6 layers, the
+    ring buffer of its sliding-window layers wrapping and rolling, against the
+    forward; (c) phi3.5-moe cut to 2 layers against the CPU port, its dropped
+    choices counted, then bf16 serving."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.common.tree_utils import param_count, tree_cast
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.pipeline import lm_synthetic_batch
+    from repro_torch.models import stacked
+    from repro_torch.models.transformer import padded_vocab
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    with torch.inference_mode():
+        # ---- a. qwen3-4b, full width and depth
+        qwen = get_arch("qwen3-4b").lm
+        t0 = time.perf_counter()
+        params = stacked.init_lm_stacked(qwen, torch.Generator(device=device).manual_seed(LM_SEED), device=device)
+        torch.cuda.synchronize(device)
+        n_params = param_count(params)
+        log(f"lm: qwen3-4b {qwen}: {n_params:,} parameters, float32, drawn on the card in "
+            f"{time.perf_counter() - t0:.1f} s")
+        check(n_params == QWEN_PARAMS, f"qwen3-4b has {n_params} parameters, not {QWEN_PARAMS}")
+        toks = lm_synthetic_batch(qwen.vocab, 2, LM_SEQ)(np.random.default_rng(LM_SEED), 0)["tokens"]
+        toks = torch.from_numpy(toks).to(device)
+        f32 = lm_decode_against_forward("qwen3-4b", params, qwen, toks, LM_PROMPT, LM_STEPS)
+        low = tree_cast(params, torch.bfloat16)
+        del params
+        torch.cuda.empty_cache()
+        bf16 = lm_teacher_forced(low, qwen, toks, LM_PROMPT, LM_STEPS, torch.bfloat16)
+        d32, d16 = f32[:, 1:, :qwen.vocab], bf16[:, 1:, :qwen.vocab]
+        gap = float((d16.double() - d32.double()).norm() / d32.double().norm())
+        same = float((d16.argmax(-1) == d32.argmax(-1)).float().mean())
+        log(f"lm: qwen3-4b bf16 weights and cache against float32, the {LM_STEPS} teacher-forced decode steps: "
+            f"relative error norm {gap:.5f} (bound {LM_BF16_GAP}: twice JAX's own gap, tests/lm_bf16_gap.py); "
+            f"greedy tokens equal to float32's {same:.4f}")
+        check(gap <= LM_BF16_GAP, f"qwen3-4b bf16 against float32 {gap} > {LM_BF16_GAP}")
+        del f32, bf16, d32, d16
+
+        torch.cuda.reset_peak_memory_stats(device)
+        lm_serve("qwen3-4b", low, qwen, LM_SERVE_BATCH, LM_SERVE_PROMPT, LM_SERVE_STEPS, device, 1)
+        long = torch.from_numpy(lm_synthetic_batch(qwen.vocab, 1, LM_LONG)(np.random.default_rng(2), 0)["tokens"])
+        long = long.to(device)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        logits, state = stacked.lm_prefill_stacked(low, qwen, long, LM_LONG, torch.bfloat16)
+        last = logits[:, -1, :qwen.vocab].float()  # the cell's serve output: the last row
+        torch.cuda.synchronize(device)
+        long_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated(device) / 1e9
+        check(bool(torch.isfinite(last).all()) and tuple(logits.shape) == (1, LM_LONG, padded_vocab(qwen)),
+              "qwen3-4b 1 x 32,768 prefill: finite logits of the padded vocab's width")
+        log(f"lm: qwen3-4b bf16 prefill 1 x {LM_LONG} (attention blocks 2048 x 1024) in {long_ms:.1f} ms "
+            f"({LM_LONG / long_ms * 1e3:,.0f} tokens/s); logits {logits.numel() * logits.element_size() / 1e9:.2f} GB, "
+            f"KV {sum(c.k.numel() * 2 * c.k.element_size() for c in state.caches) / 1e9:.2f} GB; peak device "
+            f"memory since the 4 x {LM_SERVE_PROMPT} prefill {peak:.2f} GB")
+        del logits, state, last, low
+        torch.cuda.empty_cache()
+        lm_card_vs_cpu("qwen3-4b", dataclasses.replace(qwen, n_layers=2),
+                       torch.from_numpy(toks[:1, :LM_CPU_TOKENS].cpu().numpy()), device)
+        torch.cuda.empty_cache()
+
+        # ---- b. gemma3-27b, 6 layers: 5 sliding-window (1,024) and 1 global
+        gemma = dataclasses.replace(get_arch("gemma3-27b").lm, n_layers=LM_GEMMA_LAYERS)
+        params = stacked.init_lm_stacked(gemma, torch.Generator(device=device).manual_seed(LM_SEED), device=device)
+        log(f"lm: gemma3-27b cut to {gemma.n_layers} layers: {param_count(params):,} parameters, float32")
+        toks = lm_synthetic_batch(gemma.vocab, 2, LM_GEMMA_SEQ)(np.random.default_rng(3), 0)["tokens"]
+        lm_decode_against_forward("gemma3-27b ring buffer", params, gemma, torch.from_numpy(toks).to(device),
+                                  LM_GEMMA_PROMPT, LM_STEPS)
+        del params
+        torch.cuda.empty_cache()
+
+        # ---- c. phi3.5-moe, 2 MoE layers: 16 experts, top 2
+        phi = dataclasses.replace(get_arch("phi3.5-moe-42b-a6.6b").lm, n_layers=LM_PHI_LAYERS)
+        toks = lm_synthetic_batch(phi.vocab, 1, LM_PHI_TOKENS)(np.random.default_rng(4), 0)["tokens"]
+        params, moe_calls = lm_card_vs_cpu("phi3.5-moe", phi, torch.from_numpy(toks), device)
+        log(f"lm: phi3.5-moe: {param_count(params):,} parameters; " + "; ".join(
+            "layer {}: {} of {} choices dropped at a capacity of {} per expert".format(i, *moe_dropped(*c))
+            for i, c in enumerate(moe_calls)))
+        check(len(moe_calls) == LM_PHI_LAYERS, "phi3.5-moe: every layer ran moe_ffn")
+        low = tree_cast(params, torch.bfloat16)
+        del params
+        torch.cuda.empty_cache()
+        lm_serve("phi3.5-moe", low, phi, LM_SERVE_BATCH, LM_PHI_PROMPT, LM_PHI_STEPS, device, 5)
+        del low
+    torch.cuda.empty_cache()
+    log(f"lm phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1941,6 +2198,9 @@ def smoke(device) -> int:
     # ---- 7g. the SPLADE encoder: train, checkpoint, encode, index the learned vectors, retrieve
     encoder_launches, encoder_calls = encoder_phase(device, core_ops, sites)
     torch.cuda.empty_cache()
+
+    # ---- 7h. decoder-only LM serving: qwen3-4b, gemma3-27b's ring buffer, phi3.5-moe (no kernel of this repo)
+    lm_phase(device)
 
     # ---- 8. each kernel vs its plain version at its path's shapes, timed
     flush = torch.empty(128 * 2**20, dtype=torch.float32, device=device)

@@ -3,10 +3,10 @@
 Conventions across ``repro_torch.models``: parameters are NamedTuples of tensors
 (the JAX package's pytrees, field for field), weights keep its ``[in, out]``
 orientation so a layer is ``x @ w``, and initialisers take an explicit
-CPU ``torch.Generator``, dtype and device, so that the bf16-compute / float32-master
-policy lives in the trainer, not the model. The JAX module's ``maybe_shard`` and
-``ambient_axis_size`` are hints to an ambient device mesh, which PyTorch has no
-counterpart of; they are left out.
+``torch.Generator`` (CPU, or CUDA to draw on the card), dtype and device, so
+that the bf16-compute / float32-master policy lives in the trainer, not the
+model. The JAX module's ``maybe_shard`` and ``ambient_axis_size`` are hints to
+an ambient device mesh, which PyTorch has no counterpart of; they are left out.
 """
 
 from __future__ import annotations
@@ -18,9 +18,11 @@ import torch.nn.functional as F
 def _trunc_normal(shape, std: float, generator, dtype, device) -> torch.Tensor:
     """A normal truncated at ±2 standard deviations, then scaled by ``std``
     (``trunc_normal_``'s bounds are absolute, so they are ±2·std). Drawn on the
-    host from a CPU ``generator``, so a seed gives the same weights on every
-    device."""
-    w = torch.empty(shape, dtype=torch.float32)
+    device of ``generator``: from a CPU generator (or none) on the host, so a
+    seed gives the same weights on every device; from a CUDA generator on the
+    card, which is what makes a model of billions of parameters quick to
+    initialise there."""
+    w = torch.empty(shape, dtype=torch.float32, device=generator.device if generator is not None else "cpu")
     torch.nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
     return w.to(device=device, dtype=dtype)
 

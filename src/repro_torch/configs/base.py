@@ -3,10 +3,6 @@
 Every assigned architecture registers an ``ArchConfig`` under its pool id; launchers
 select with ``--arch <id>`` and ``--shape <id>``. ``reduced()`` returns a CPU-smoke
 variant of the same family (same code paths, tiny dims).
-
-The architecture files that fill the registry (the JAX package's ``configs/*.py``)
-are not ported yet, so ``get_arch`` and ``all_arch_names`` raise
-``NotImplementedError`` (ROADMAP queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -188,16 +184,16 @@ def register_arch(cfg: ArchConfig) -> ArchConfig:
     return cfg
 
 
-_ARCH_FILES = ("the architecture files (configs/*.py) are not ported yet: "
-               "ROADMAP queue 1 item 6")
-
-
 def get_arch(name: str) -> ArchConfig:
-    raise NotImplementedError(f"get_arch({name!r}): {_ARCH_FILES}")
+    import repro_torch.configs  # noqa: F401  (triggers registration)
+
+    return ARCHS.get(name)
 
 
 def all_arch_names() -> list[str]:
-    raise NotImplementedError(f"all_arch_names(): {_ARCH_FILES}")
+    import repro_torch.configs  # noqa: F401
+
+    return ARCHS.names()
 
 
 def asdict(cfg) -> dict:

@@ -6,7 +6,8 @@
 Trains the SPLADE-style sparse encoder with AdamW and atomic checkpoints: bf16
 compute over float32 master weights at full width, float32 with ``--reduced``.
 Re-running the same command resumes from ``--ckpt-dir``. The decoder-only
-archs (``--arch``) need the stacked LM and Adafactor, which are not ported yet
+archs (``--arch``) are ported for serving (``models/stacked.py``); training
+them needs Adafactor and the LM training step, which are not ported yet
 (ROADMAP queue 1 item 6).
 """
 
@@ -58,7 +59,7 @@ def splade_job(steps: int, batch: int = 8, reduced: bool = False, device=None, c
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser()
-    p.add_argument("--arch", default=None, help="a decoder-only arch (not ported yet)")
+    p.add_argument("--arch", default=None, help="a decoder-only arch (its training is not ported yet)")
     p.add_argument("--splade", action="store_true", help="train the SPLADE-style sparse encoder")
     p.add_argument("--steps", type=int, default=50)
     p.add_argument("--batch", type=int, default=8)
@@ -70,8 +71,9 @@ def main(argv=None) -> None:
 
     if not args.splade:
         raise NotImplementedError(
-            f"--arch {args.arch}: the decoder-only LM stack (models/stacked.py) and Adafactor are not "
-            "ported yet (ROADMAP queue 1 item 6); pass --splade")
+            f"--arch {args.arch}: training a decoder-only LM needs Adafactor and the LM training step "
+            "(lm_loss_stacked's gradients through remat), which are not ported yet (ROADMAP queue 1 "
+            "item 6); pass --splade")
     _, trainer, pipe = splade_job(args.steps, args.batch, args.reduced, args.device, args.ckpt_dir,
                                   args.ckpt_every)
     state = trainer.init_or_restore()

@@ -23,28 +23,25 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.common import module as cm
 from repro_torch.configs.base import LMCfg
 from repro_torch.models import attention as attn
-from repro_torch.models import ffn as ffn_mod
-from repro_torch.models.transformer import LayerParams, LMParams, init_lm
+from repro_torch.models.transformer import (
+    LayerParams, LMParams, embed_tokens, ffn_apply, init_lm, lm_head_logits, positions_of,
+)
 
 
 def encoder_forward(params: LMParams, cfg: LMCfg, tokens: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Bidirectional encode: tokens [B, S], mask [B, S] bool -> term weights [B, V] float32."""
-    ffn_mod.require_dense(cfg)
-    b, s = tokens.shape
-    x = F.embedding(tokens.long(), params.embed) * torch.tensor(cfg.d_model**0.5, dtype=params.embed.dtype)
-    positions = torch.arange(s, device=tokens.device).expand(b, s)
-    for lp in params.layers:
+    x = embed_tokens(params.embed, cfg, tokens)
+    positions = positions_of(tokens)
+    for i, lp in enumerate(params.layers):
         x = x + _bidir_attn(lp, cfg, cm.rms_norm(x, lp.norm1), positions, mask)
-        x = x + ffn_mod.dense_ffn(lp.ffn, cm.rms_norm(x, lp.norm2))
-    x = cm.rms_norm(x, params.final_norm)
-    head = params.embed.T if params.lm_head is None else params.lm_head
-    logits = x @ head  # [B, S, V_pad] MLM logits
+        y, _ = ffn_apply(lp, cfg, i, cm.rms_norm(x, lp.norm2))  # MoE or dense
+        x = x + y
+    logits = lm_head_logits(params, x)  # [B, S, V_pad] MLM logits
     w = torch.log1p(torch.relu(logits.float()))
     w = torch.where(mask[:, :, None], w, 0.0)
     return w.amax(dim=1)[:, : cfg.vocab]  # [B, V]

@@ -76,10 +76,13 @@ def test_model_flops_equal_jax_for_every_runnable_shape(name):
         assert mf.lm_total_params(arch.lm) == jmf.lm_total_params(jarch.lm)
 
 
-def test_arch_registry_waits_for_the_arch_files():
-    for call in (lambda: get_arch("qwen3-4b"), all_arch_names):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-            call()
+@pytest.mark.parametrize("name", ARCHS)
+def test_arch_registry_equals_jax(name):
+    assert all_arch_names() == ARCHS and len(ARCHS) == 10
+    arch = get_arch(name)
+    assert type(arch) is ArchConfig
+    assert dataclasses.asdict(arch) == dataclasses.asdict(jax_get_arch(name))
+    assert arch == _port_arch(jax_get_arch(name))
 
 
 # ------------------------------------------------------------------ data

@@ -198,15 +198,25 @@ def test_bf16_compute_loss_and_gradients_equal_jax():
         assert err <= min(2 * bf16_err, 0.15), f"{k}: {err:.4f} from JAX's bf16 gradient; JAX bf16 vs f32 {bf16_err:.4f}"
 
 
-def test_moe_config_raises():
-    cfg = LMCfg(**{**TINY, "moe": MoECfg(n_experts=4, top_k=2, d_ff_expert=64)})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_encoder(cfg, torch.Generator().manual_seed(0), device="cpu")
-    params = from_arrays(_np(_jax_params(JaxLMCfg(**TINY))), "cpu")
-    tokens, mask = (torch.from_numpy(a) for a in _tokens(0, 2, 4, 256))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        encoder_forward(params, cfg, tokens, mask)
-    assert JaxMoECfg(4, 2, 64) == JaxMoECfg(**dataclasses.asdict(cfg.moe))
+@pytest.mark.parametrize("every_n", [1, 2])
+def test_moe_encoder_forward_equals_jax(every_n):
+    """MoE feed-forwards (phi3.5's every layer; llama4's every second, with a
+    shared expert), a capacity that drops choices at this length."""
+    moe = dict(n_experts=4, top_k=2 if every_n == 1 else 1, d_ff_expert=32, n_shared=every_n - 1,
+               capacity_factor=0.5, every_n=every_n)
+    kw = {**TINY, "n_layers": 2, "tie_embeddings": every_n == 1}
+    jcfg, cfg = JaxLMCfg(**kw, moe=JaxMoECfg(**moe)), LMCfg(**kw, moe=MoECfg(**moe))
+    jp = _jax_params(jcfg, seed=6)
+    params = from_arrays(_np(jp), "cpu")
+    assert type(params.layers[every_n - 1].ffn).__name__ == "MoEParams"
+    tokens, mask = _tokens(4, 5, 12, cfg.vocab)
+    want = np.asarray(jax.jit(jax_encoder_forward, static_argnums=1)(jp, jcfg, jnp.asarray(tokens),
+                                                                     jnp.asarray(mask)))
+    got = SparseEncoder(cfg, params)(torch.from_numpy(tokens), torch.from_numpy(mask)).detach()
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    again = init_encoder(cfg, torch.Generator().manual_seed(0), device="cpu")
+    assert [tuple(x.shape) for x in jax.tree_util.tree_leaves(_np(jp))] == \
+        [tuple(x.shape) for x in flatten_with_paths(again).values()]
 
 
 @pytest.mark.parametrize("name", ["tiny", "qk_norm"])
