@@ -154,6 +154,19 @@ LM_SERVE_BATCH, LM_SERVE_PROMPT, LM_SERVE_STEPS, LM_LONG = 4, 4096, 128, 32768
 LM_CPU_TOKENS = 128  # the 2-layer cut's forward, card against CPU
 LM_GEMMA_LAYERS, LM_GEMMA_SEQ, LM_GEMMA_PROMPT = 6, 2048, 1536  # one group: 5 sliding-window, 1 global
 LM_PHI_LAYERS, LM_PHI_TOKENS, LM_PHI_PROMPT, LM_PHI_STEPS = 2, 64, 1024, 32
+# serving-launcher phase: python -m repro_torch.launch.serve at the smoke's corpus size (its own
+# 32 topics), 256 requests at its default max batch of 8; the SLO flags at the JAX launcher's
+# example target, a deadline and a quota no request reaches
+LAUNCH_REQUESTS, LAUNCH_SHARDS = 256, 3
+LAUNCH_SLO = ["--slo-p99-ms", "50", "--deadline-ms", "60000", "--tenant-quota", "default=1000000/1000000"]
+# LM-training phase: the launcher's --arch job (Adafactor lr 1e-3, bf16 compute over float32
+# masters, remat, lm_synthetic_batch) for qwen3-4b at full width and depth; its 2-layer cut in
+# float32, card against CPU after 2 steps (a smaller batch: the CPU runs it) and a checkpoint at
+# step 2 resumed to 4 against the straight run; phi3.5-moe at 2 layers for 3 bf16 steps
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARMUP = "qwen3-4b", 20, 8, 128, 3
+TRAIN_CUT_LAYERS, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 2, 2, 64
+TRAIN_CPU_RTOL = 1e-4  # float32 on both devices (TF32 off), sums in another order; per leaf, in norm
+TRAIN_PHI_STEPS = 3
 # name -> (core.ops attribute, CUDA source, the TPU kernel it replaces)
 KERNELS = {
     "sbmax": ("sbmax_kernel", "src/repro_torch/csrc/sbmax.cu", "src/repro/kernels/sbmax/kernel.py:51"),
@@ -388,7 +401,8 @@ def profile_call(label, fn):
     """Where one call's time goes: device kernels by name (CUPTI, through
     torch.profiler), their count, and the device's idle share of the call's
     wall time. ``fn`` must end in a device-to-host copy. Prints "not
-    measured" if the profiler sees no device time."""
+    measured" if the profiler sees no device time (and returns None; else
+    {kernels, busy_ms, wall_ms, idle})."""
     from collections import Counter
 
     import torch
@@ -403,7 +417,7 @@ def profile_call(label, fn):
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
         log("profile: the profiler saw no device time; device busy share not measured")
-        return
+        return None
     by_name = Counter()
     for e in kernels:
         by_name[e.name[:90]] += e.time_range.elapsed_us()
@@ -418,6 +432,8 @@ def profile_call(label, fn):
     for e in cpu[:8]:
         log(f"  host {e.self_cpu_time_total / 1e3:8.3f} ms  {e.count:4d} x {e.key}")
     torch.cuda.synchronize()
+    return {"kernels": len(kernels), "busy_ms": busy_us / 1e3, "wall_ms": wall_us / 1e3,
+            "idle": 1 - busy_us / wall_us}
 
 
 def recording(fn, calls):
@@ -2027,6 +2043,413 @@ def lm_phase(device):
     log(f"lm phase {time.perf_counter() - t_phase:.1f} s")
 
 
+def _launcher_follower(rank, world, store, argv, device, results):
+    """A follower rank of the serving launcher's process group (gloo, the
+    card shared): the launcher's own job, which follows rank 0's front end
+    until its shutdown."""
+    import traceback
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.serve import parse_args, serve_job
+
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=f"file://{store}", world_size=world, rank=rank,
+                            timeout=timedelta(seconds=RANK_TIMEOUT_S))
+    try:
+        check(serve_job(parse_args(argv), group=dist.group.WORLD) is None, "a follower returns nothing")
+        dist.barrier()
+        results.put((rank, None))
+    except BaseException:  # sent to the parent, then raised
+        results.put((rank, traceback.format_exc()))
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def launcher_group_run(argv, corpus, device, tmp):
+    """The launcher's job over a process group of LAUNCH_SHARDS gloo ranks
+    on the card: this process is rank 0 (the engine and the front end), the
+    other ranks are spawned and follow it. A rank that fails or sends
+    nothing within RANK_TIMEOUT_S fails the run. Returns (rank 0's run,
+    what it printed)."""
+    import multiprocessing as mp
+    import queue
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.serve import parse_args, serve_job
+
+    store = os.path.join(tmp, "launch_group_store")
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_launcher_follower, args=(r, LAUNCH_SHARDS, store, argv, device, results))
+             for r in range(1, LAUNCH_SHARDS)]
+    for p in procs:
+        p.start()
+    errors = []
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{store}", world_size=LAUNCH_SHARDS, rank=0,
+                                timeout=timedelta(seconds=RANK_TIMEOUT_S))
+        try:
+            run, printed = _quiet(lambda: serve_job(parse_args(argv), corpus=corpus, group=dist.group.WORLD))
+            dist.barrier()
+        finally:
+            dist.destroy_process_group()
+        for _ in procs:  # drain the queue before joining
+            try:
+                rank, err = results.get(timeout=RANK_TIMEOUT_S)
+            except queue.Empty:
+                errors.append(f"a follower sent nothing within {RANK_TIMEOUT_S} s")
+                break
+            if err is not None:
+                errors.append(f"follower {rank} failed:\n{err}")
+        for p in procs:
+            p.join(timeout=RANK_TIMEOUT_S if not errors else 5)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+    check(not errors, "; ".join(errors))
+    check(all(p.exitcode == 0 for p in procs), f"follower exit codes {[p.exitcode for p in procs]}")
+    return run, printed
+
+
+def _quiet(fn):
+    """(fn(), what it printed); the printed lines go to the log too."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    for line in buf.getvalue().splitlines():
+        log(f"  {line}")
+    return out, buf.getvalue()
+
+
+def _served_as(resp, t, w, requested, params, ladder, nq_max):
+    """The request exactly as the engine served it: at the point it served
+    (``params_served``) and, when the SLO controller degraded it, cut to the
+    query terms of the rung whose point that is."""
+    from repro_torch.api import SearchRequest
+    from repro_torch.core.config import DynamicParams
+    from repro_torch.core.query import canonical_query
+
+    cap = 0
+    if resp.degraded:
+        base = requested or params
+        rung = next(r for r in ladder[1:] if DynamicParams(
+            k=min(base.k, r.params.k), mu=min(base.mu, r.params.mu), eta=min(base.eta, r.params.eta),
+            beta=min(base.beta, r.params.beta)) == resp.params_served)
+        cap = rung.nq_cap
+    t, w = canonical_query(t, w, min(cap, nq_max) if cap else nq_max)
+    return SearchRequest(t, w, params=resp.params_served)
+
+
+def launcher_phase(device, core_ops, tmp):
+    """The serving launcher (``python -m repro_torch.launch.serve``'s job) at
+    the smoke's corpus size with its own 32 topics: a first start builds the
+    index on the card and saves it; a second start mmap-loads it and serves
+    LAUNCH_REQUESTS requests with a hot swap to a rebuilt index mid-run, the
+    k sweep 1, 5, 10 and the SLO flags (every kernel's launches counted),
+    every response equal to a pinned impl="ref" retriever over the index its
+    epoch served, at the point and terms it was served; then 3 shards cut
+    from the first index, served by the launcher through the host loop and
+    through 3 gloo ranks behind the rank-0 front end, both equal to the
+    single index's kernel path. Returns (launches, captured calls) of the
+    second start."""
+    import re
+
+    import numpy as np
+
+    from repro_torch.api import Retriever, SearchRequest
+    from repro_torch.core.config import DynamicParams
+    from repro_torch.data.synthetic import CorpusConfig, make_corpus
+    from repro_torch.index.store import save_sharded_index
+    from repro_torch.launch import serve
+    from repro_torch.serve.errors import DeadlineExceeded
+    from repro_torch.serve.slo import default_degradation_ladder
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    corpus = make_corpus(CorpusConfig(n_docs=N_DOCS, vocab=VOCAB, n_topics=serve.N_TOPICS, seed=0))
+    log(f"launcher: corpus of {N_DOCS} docs, vocab {VOCAB}, {serve.N_TOPICS} topics, {len(corpus.tids)} postings "
+        f"(host, {time.perf_counter() - t0:.1f} s)")
+    base = ["--n-docs", str(N_DOCS), "--vocab", str(VOCAB), "--requests", str(LAUNCH_REQUESTS), "--device", str(device)]
+    single_dir = os.path.join(tmp, "launch_single")
+
+    # ---- a. the first start: build on the card, save
+    t0 = time.perf_counter()
+    first, _ = _quiet(lambda: serve.serve_job(serve.parse_args(base + ["--index-dir", single_dir]), corpus=corpus))
+    log(f"launcher start 1 (build and save) in {time.perf_counter() - t0:.1f} s")
+    check(first.summary["failures"] == 0 and first.summary["requests"] == LAUNCH_REQUESTS, "launcher start 1 served")
+
+    # ---- b. the second start: mmap-load, swap mid-run, sweep, SLO flags; the main path, counted
+    argv = base + ["--index-dir", single_dir, "--swap-mid-run", "--sweep-k", "1,5,10"] + LAUNCH_SLO
+    log("launcher start 2: " + " ".join(argv))
+    fns = {name: getattr(core_ops, attr) for name, (attr, _, _) in KERNELS.items()}
+    for fn in fns.values():
+        fn.launches = 0
+    box = {}
+    t0 = time.perf_counter()
+    captured = capture(core_ops, ["sbmax", "boundsum_gather", "doc_score_fwd"], lambda: box.update(zip(
+        ("run", "printed"), _quiet(lambda: serve.serve_job(serve.parse_args(argv), corpus=corpus)))))
+    wall_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in fns.items()}
+    run, printed = box["run"], box["printed"]
+    log(f"launcher start 2 in {wall_s:.1f} s; launches {launches}")
+    for key in ("sbmax", "boundsum_gather", "doc_score_fwd"):
+        check(launches[key] > 0, f"kernel {key} was never launched on the serving launcher's path")
+    s = run.summary
+    mmap_s = float(re.search(r"mmap-loaded index .* in ([0-9.]+)s", printed).group(1))
+    check(run.recompiles == 0, f"recompiles {run.recompiles}")
+    check(s["failures"] == 0 and s["swaps"] == 1, f"launcher start 2: failures {s['failures']}, swaps {s['swaps']}")
+    n_sweep = 3 * LAUNCH_REQUESTS
+    check(len(run.responses) == LAUNCH_REQUESTS and len(run.sweep) == n_sweep, "every request answered")
+    shed = sum(isinstance(r, DeadlineExceeded) for r in run.responses + run.sweep)
+    check(shed == 0 and s["deadline_expired"] == 0, f"{shed} requests shed at a 60 s deadline")
+    half = LAUNCH_REQUESTS // 2
+    epochs = [r.epoch for r in run.responses]
+    check(set(epochs[:half]) <= {0, 1} and set(epochs[half:]) == {1} and {r.epoch for r in run.sweep} == {1},
+          "a request submitted after the swap was served by the old index (stale)")
+    # every response against impl="ref" over the index its epoch served, at the point and terms it was served
+    ladder = default_degradation_ladder(run.params, nq_max=ENGINE_NQ)
+    refs = [Retriever.from_index(ix, run.static_cfg, params=run.params, impl="ref", device=device)
+            for ix in (run.index, run.swapped)]
+    requested = [None] * LAUNCH_REQUESTS + [DynamicParams(k=k, beta=run.params.beta) for k in (1, 5, 10)
+                                            for _ in range(LAUNCH_REQUESTS)]
+    mismatched = 0
+    for resp, (t, w), req in zip(run.responses + run.sweep, run.queries * 4, requested):
+        want = refs[resp.epoch].search(_served_as(resp, t, w, req, run.params, ladder, ENGINE_NQ))
+        mismatched += not (np.array_equal(resp.doc_ids, want.doc_ids) and resp.theta == want.theta
+                           and (resp.n_superblocks_visited, resp.n_blocks_scored)
+                           == (want.n_superblocks_visited, want.n_blocks_scored))
+    log(f"launcher start 2: {LAUNCH_REQUESTS} requests + {n_sweep} of the sweep against impl='ref' over the index "
+        f"each epoch served: {mismatched} differ in ids, theta or counters; {s['degraded']} degraded by the SLO "
+        f"controller (compared at the point and terms served); epochs of the first half {sorted(set(epochs[:half]))}")
+    check(mismatched == 0, f"launcher start 2: {mismatched} responses differ from impl='ref'")
+    log(f"launcher at {N_DOCS} docs: mmap-load {mmap_s:.3f} s, swap {s['last_swap_ms']:.1f} ms (warm and flip; the "
+        f"rebuild before it excluded), {s['requests']} requests in {s['batches']} batches, p50 {s['p50_ms']:.2f} ms "
+        f"p99 {s['p99_ms']:.2f} ms ({LAUNCH_REQUESTS} submitted at once, then the sweep's {n_sweep}: queueing "
+        f"included), cache hit rate {s['cache_hit_rate']:.3f}")
+    del refs, run
+
+    # ---- c. 3 shards of the first index: the host loop, and 3 ranks behind the rank-0 front end
+    sharded_dir = os.path.join(tmp, "launch_sharded")
+    t0 = time.perf_counter()
+    save_sharded_index(sharded_dir, first.index, LAUNCH_SHARDS)
+    log(f"launcher: the first index cut into {LAUNCH_SHARDS} shards and saved in {time.perf_counter() - t0:.1f} s")
+    single = Retriever.from_index(first.index, first.static_cfg, params=first.params, device=device)
+    want = single.search_batch([SearchRequest(t, w) for t, w in first.queries])
+    want += [r for k in (1, 5, 10) for r in single.search_batch(
+        [SearchRequest(t, w, params=DynamicParams(k=k, beta=first.params.beta)) for t, w in first.queries])]
+    del first, single
+    shard_argv = base + ["--shards", str(LAUNCH_SHARDS), "--index-dir", sharded_dir, "--sweep-k", "1,5,10"]
+    starts = {}
+    t0 = time.perf_counter()
+    starts["host loop"], _ = _quiet(lambda: serve.serve_job(serve.parse_args(shard_argv), corpus=corpus))
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    starts["3-rank front end"], group_printed = launcher_group_run(shard_argv, corpus, device, tmp)
+    group_s = time.perf_counter() - t0
+    check("shard_map transport" in group_printed, "the 3-rank start served through the front end")
+    for label, got in starts.items():
+        check(got.summary["failures"] == 0 and got.recompiles == 0, f"launcher {label}: failures or recompiles")
+        for i, (g, w) in enumerate(zip(got.responses + got.sweep, want)):
+            _same_ids_theta_counters(g, w, f"launcher {label}, request {i}")
+        log(f"launcher --shards {LAUNCH_SHARDS}, {label}: {len(got.responses) + len(got.sweep)} responses equal to "
+            f"the single index's on ids, theta and counters; p50 {got.summary['p50_ms']:.2f} ms p99 "
+            f"{got.summary['p99_ms']:.2f} ms; the start {host_s if label == 'host loop' else group_s:.1f} s")
+    log(f"launcher phase {time.perf_counter() - t_phase:.1f} s")
+    mid = len(captured["doc_score_fwd"]) // 4 * 2  # a round-0 call and the phase-3 call after it, mid-run
+    return launches, {"sbmax": captured["sbmax"][len(captured["sbmax"]) // 2:][:1],
+                      "boundsum_gather": captured["boundsum_gather"][len(captured["boundsum_gather"]) // 2:][:1],
+                      "doc_score_fwd": captured["doc_score_fwd"][mid: mid + 2]}
+
+
+def lm_train_phase(device):
+    """LM training through the launcher's --arch job on the card: qwen3-4b
+    at full width and depth (bf16 compute, Adafactor) with falling ce, its
+    step time, peak memory, kernels a step and floor; its 2-layer cut in
+    float32, card against CPU after 2 steps, and a checkpoint at step 2
+    resumed to 4 against the straight run; phi3.5-moe at 2 layers, 3 bf16
+    steps with its dropped expert choices; one step under
+    torch.use_deterministic_algorithms(True), twice from one state, to the
+    bit."""
+    import numpy as np
+    import torch
+
+    from repro_torch.common.tree_utils import flatten_with_paths, param_count, tree_cast, tree_map
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.pipeline import CounterPipeline, PipelineConfig, lm_synthetic_batch
+    from repro_torch.launch.train import lm_job
+    from repro_torch.models import ffn, stacked
+    from repro_torch.optim import Adafactor
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+
+    # ---- a. qwen3-4b, full width and depth, through lm_job
+    torch.cuda.reset_peak_memory_stats(device)
+    cfg, trainer, pipe = lm_job(TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, device=device)
+    t0 = time.perf_counter()
+    state = trainer.init_or_restore()
+    torch.cuda.synchronize(device)
+    n_params = param_count(state.params)
+    check(n_params == QWEN_PARAMS, f"{TRAIN_ARCH} has {n_params} parameters")
+    log(f"train: {TRAIN_ARCH} {cfg}; {n_params:,} parameters drawn on the card in {time.perf_counter() - t0:.1f} s; "
+        f"Adafactor lr 1e-3, {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens, bf16 compute over float32 "
+        f"masters, remat per group")
+    ces, stamps = [], []
+
+    def on_step(step, metrics):
+        ces.append(float(metrics["ce"]))  # waits for the step
+        stamps.append(time.perf_counter())
+
+    resident_gb = torch.cuda.memory_allocated(device) / 1e9
+    state = trainer.run(state, pipe, TRAIN_STEPS, log_every=0, on_step=on_step)
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    step_s = statistics.median(b - a for a, b in zip(stamps[TRAIN_WARMUP:], stamps[TRAIN_WARMUP + 1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = 6 * n_params * tokens  # model FLOPs; remat runs a second forward, so 8·N·tokens are executed
+    products_ms = 8 * n_params * tokens / BF16_FLOP_PER_S * 1e3
+    adafactor_ms = 12 * n_params / HBM_BYTES_PER_S * 1e3
+    first, last = float(np.mean(ces[:5])), float(np.mean(ces[-5:]))
+    log(f"train {TRAIN_ARCH}: ce first 5 steps {first:.4f}, last 5 {last:.4f} (ln V = {np.log(cfg.vocab):.4f}); "
+        f"every step: {[round(c, 3) for c in ces]}")
+    batch = {k: torch.from_numpy(v).to(device) for k, v in pipe.batch_at(TRAIN_STEPS).items()}
+    prof = profile_call(f"{TRAIN_ARCH} train step", lambda: float(trainer.step_fn(state, batch)[1]["ce"]))
+    log(f"train {TRAIN_ARCH} step: median {step_s * 1e3:.1f} ms (steps {TRAIN_WARMUP + 2}-{TRAIN_STEPS}, host clock, "
+        f"each ends in a read of ce), {tokens / step_s:,.0f} tokens/s, {flops / 1e12:.2f} model TFLOP a step "
+        f"(6·N·tokens; remat runs a second forward, 8·N·tokens executed) -> {flops / step_s / 1e12:.1f} TFLOP/s, "
+        f"{flops / step_s / BF16_FLOP_PER_S:.3f} of the dense bf16 peak; floor {products_ms + adafactor_ms:.1f} ms = "
+        f"products 8·N·tokens at {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s {products_ms:.1f} ms + Adafactor's 12·N bytes "
+        f"(read p and g, write p) at {HBM_BYTES_PER_S / 1e12:.2f} TB/s {adafactor_ms:.1f} ms; "
+        + (f"{prof['kernels']} kernels a step, idle share {prof['idle']:.3f}; " if prof else "")
+        + f"peak device memory {peak_gb:.2f} GB ({resident_gb:.2f} GB of it allocated before the first step)")
+    check(last < first, f"{TRAIN_ARCH}: ce does not fall: first 5 steps {first}, last 5 {last}")
+    check(bool(np.isfinite(ces).all()), f"{TRAIN_ARCH}: a step's ce is not finite")
+    del trainer, state, batch
+    torch.cuda.empty_cache()
+
+    def make_trainer(c, init, dtype, ckpt_dir=""):
+        return Trainer(lambda p, b: stacked.lm_loss_stacked(p, c, b["tokens"], b["labels"], remat=True),
+                       Adafactor(lr=1e-3), TrainerConfig(ckpt_dir=ckpt_dir, ckpt_every=2, ckpt_async=False,
+                                                         compute_dtype=dtype), init)
+
+    # ---- b. the 2-layer cut in float32: card against CPU after 2 steps; a checkpoint at 2 resumed to 4
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_CUT_LAYERS)
+    base = stacked.init_lm_stacked(cut, torch.Generator(device=device).manual_seed(LM_SEED), device=device)
+    small = CounterPipeline(PipelineConfig(global_batch=TRAIN_CPU_BATCH),
+                            lm_synthetic_batch(cut.vocab, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ))
+    losses = {}
+
+    def run(dev, steps, ckpt_dir="", start=None):
+        t = make_trainer(cut, lambda: tree_map(lambda x: x.to(dev, copy=True), base), torch.float32, ckpt_dir)
+        st = t.init_or_restore() if start is None else start
+        losses[dev.type] = []
+        return t.run(st, small, steps, log_every=0, on_step=lambda i, m: losses[dev.type].append(float(m["loss"])))
+
+    card2 = run(device, 2)
+    t0 = time.perf_counter()
+    cpu2 = run(torch.device("cpu"), 2)
+    cpu_s = time.perf_counter() - t0
+    a, b = flatten_with_paths(card2), flatten_with_paths(cpu2)
+    errs = {k: float((a[k].cpu().double() - b[k].double()).norm() / b[k].double().norm().clamp_min(1e-30))
+            for k in b if b[k].is_floating_point() and b[k].numel()}
+    worst = max(errs, key=errs.get)
+    loss_err = max(abs(x - y) / abs(y) for x, y in zip(losses[device.type], losses["cpu"]))
+    log(f"train {TRAIN_ARCH} cut to {cut.n_layers} layers ({param_count(base):,} parameters), float32, "
+        f"{TRAIN_CPU_BATCH} x {TRAIN_CPU_SEQ} tokens, 2 Adafactor steps, card against CPU: loss {losses[device.type]} "
+        f"vs {losses['cpu']} (largest relative difference {loss_err:.3g}); largest per-leaf relative error norm "
+        f"{errs[worst]:.3g} in {worst} over {len(errs)} leaves (bound {TRAIN_CPU_RTOL}; CPU {cpu_s:.1f} s)")
+    check(loss_err <= TRAIN_CPU_RTOL and errs[worst] <= TRAIN_CPU_RTOL, f"{TRAIN_ARCH} cut: card against CPU")
+    del cpu2
+    straight = run(device, 2, start=card2)
+    tmp = tempfile.mkdtemp()
+    try:
+        ck = os.path.join(tmp, "ckpt")
+        run(device, 2, ckpt_dir=ck)
+        t0 = time.perf_counter()
+        restored = make_trainer(cut, lambda: tree_map(lambda x: x.clone(), base), torch.float32,
+                                ck).init_or_restore()
+        restore_s = time.perf_counter() - t0
+        check(int(restored.step) == 2, f"restored step {int(restored.step)}")
+        resumed = run(device, 2, start=restored)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    a, b = flatten_with_paths(straight), flatten_with_paths(resumed)
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    log(f"train {TRAIN_ARCH} cut: checkpoint at step 2 restored in a fresh Trainer in {restore_s:.1f} s and run to "
+        f"4: {len(a) - len(differ)} of {len(a)} leaves equal to the straight run to the bit")
+    check(not differ, f"the resumed run differs from the straight run in {differ[:5]}")
+    del base, card2, straight, restored, resumed
+    torch.cuda.empty_cache()
+
+    # ---- c. phi3.5-moe at 2 layers, bf16: falling loss, dropped choices; the determinism probe
+    phi = dataclasses.replace(get_arch("phi3.5-moe-42b-a6.6b").lm, n_layers=LM_PHI_LAYERS)
+    t = make_trainer(phi, lambda: stacked.init_lm_stacked(phi, torch.Generator(device=device).manual_seed(LM_SEED),
+                                                          device=device), torch.bfloat16)
+    phi_pipe = CounterPipeline(PipelineConfig(global_batch=TRAIN_BATCH),
+                               lm_synthetic_batch(phi.vocab, TRAIN_BATCH, TRAIN_SEQ))
+    held = {k: torch.from_numpy(v).to(device) for k, v in phi_pipe.batch_at(0).items()}
+
+    def held_ce(params):  # the loss of batch 0 at the bf16 compute of a step: the same batch before and after
+        with torch.no_grad():
+            return float(stacked.lm_loss_stacked(tree_cast(params, torch.bfloat16), phi, held["tokens"],
+                                                 held["labels"], remat=False)[1]["ce"])
+
+    calls, real = [], ffn.moe_ffn
+    ffn.moe_ffn = lambda p, moe, x: calls.append((p, moe, x)) or real(p, moe, x)
+    phi_ce = []
+    try:
+        st = t.init_or_restore()
+        ce_before = held_ce(st.params)
+        calls.clear()
+        st = t.run(st, phi_pipe, 1, log_every=0, on_step=lambda i, m: phi_ce.append(float(m["ce"])))
+    finally:
+        ffn.moe_ffn = real
+    dropped = [moe_dropped(*c) for c in calls[:phi.n_layers]]  # the forward's calls (remat repeats them)
+    del calls
+    st = t.run(st, phi_pipe, TRAIN_PHI_STEPS - 1, log_every=0, on_step=lambda i, m: phi_ce.append(float(m["ce"])))
+    ce_after = held_ce(st.params)
+    log(f"train phi3.5-moe cut to {phi.n_layers} layers ({param_count(st.params):,} parameters), bf16, "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens: ce of the steps {phi_ce}; ce of batch 0 before {ce_before:.5f}, after "
+        f"{TRAIN_PHI_STEPS} steps {ce_after:.5f}; first step: " + "; ".join(
+            "layer {}: {} of {} choices dropped at a capacity of {} per expert".format(i, *d)
+            for i, d in enumerate(dropped)))
+    check(bool(np.isfinite(phi_ce).all()) and ce_after < ce_before,
+          f"phi3.5-moe: ce {phi_ce} not finite, or batch 0's ce {ce_before} -> {ce_after} does not fall")
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    batch = {k: torch.from_numpy(v).to(device) for k, v in phi_pipe.batch_at(TRAIN_PHI_STEPS).items()}
+    start = tree_map(lambda x: x.to("cpu", copy=True), st)  # on the host: one state on the card at a time
+    outs = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for _ in range(2):
+            tree_map(lambda d, h: d.copy_(h), st, start)  # the step updates the state in place
+            out, _ = t.step_fn(st, batch)
+            outs.append({k: v.to("cpu", copy=True) for k, v in flatten_with_paths(out).items()})
+            del out
+    finally:
+        torch.use_deterministic_algorithms(False)
+    differ = [k for k in outs[0] if not torch.equal(outs[0][k], outs[1][k])]
+    log(f"train determinism probe: a phi3.5-moe step under use_deterministic_algorithms(True), twice from one "
+        f"state: {len(outs[0]) - len(differ)} of {len(outs[0])} leaves equal to the bit; peak device memory of the "
+        f"phase {torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
+    check(not differ, f"two deterministic steps differ in {differ[:5]}")
+    del t, st, outs, start
+    torch.cuda.empty_cache()
+    log(f"lm training phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2183,6 +2606,10 @@ def smoke(device) -> int:
         sharded_launches, sharded_calls = sharded_phase(retr, batches, responses, shards, sharded_dir, single_dir,
                                                         device, core_ops, sites)
         del shards
+
+        # ---- 7e'. the serving launcher: build + save, mmap-load + swap + sweep + SLO, 3 shards in 1 and 3 ranks
+        launcher_launches, launcher_calls = launcher_phase(device, core_ops, tmp)
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -2201,6 +2628,9 @@ def smoke(device) -> int:
 
     # ---- 7h. decoder-only LM serving: qwen3-4b, gemma3-27b's ring buffer, phi3.5-moe (no kernel of this repo)
     lm_phase(device)
+
+    # ---- 7i. LM training: qwen3-4b through the launcher's --arch job, its cut card against CPU, phi3.5-moe
+    lm_train_phase(device)
 
     # ---- 8. each kernel vs its plain version at its path's shapes, timed
     flush = torch.empty(128 * 2**20, dtype=torch.float32, device=device)
@@ -2242,6 +2672,11 @@ def smoke(device) -> int:
     for key in ("sbmax", "boundsum_gather", "doc_score_fwd"):
         groups.append((key, "phase 1" if key == "sbmax" else None, encoder_calls[key], encoder_launches[key],
                        "encoder"))
+    # and of the serving launcher's second start (the engine's batches of up to 8), launches counted there
+    for key in ("sbmax", "boundsum_gather", "doc_score_fwd"):
+        check(launcher_calls[key], f"no captured call of {key} on the serving launcher's path")
+        groups.append((key, "phase 1" if key == "sbmax" else None, launcher_calls[key], launcher_launches[key],
+                       "serve launcher"))
 
     rows = []
     for key, site, calls, n_launches, path in groups:
@@ -2307,7 +2742,7 @@ def smoke(device) -> int:
         ref_s.append(time.perf_counter() - t0)
     log(f"search_batch of {BATCH}: median {statistics.median(batch_s) * 1e3:.2f} ms over {len(batch_s)} "
         f"calls (kernel path); impl='ref' median {statistics.median(ref_s) * 1e3:.2f} ms; "
-        f"peak device memory since the dense build {torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
+        f"peak device memory since the LM-training phase began {torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
     profile_call(f"search_batch ({BATCH} requests)", lambda: retr.search_batch(batches[0]))
     log(f"total {time.perf_counter() - t_start:.1f} s")
 

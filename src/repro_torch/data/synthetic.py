@@ -63,8 +63,8 @@ def make_corpus(cfg: CorpusConfig) -> Corpus:
     slot_doc = np.repeat(np.arange(cfg.n_docs), lens)
     slot_rank = np.arange(nnz) - ptr[slot_doc]
     topical = slot_rank < n_topical[slot_doc]
-    tt = topic_terms[doc_topic[slot_doc[topical]]]
-    tids[topical] = tt[np.arange(tt.shape[0]), rng.integers(0, tt.shape[1], tt.shape[0])]
+    rows = doc_topic[slot_doc[topical]]  # each topical slot's topic, then a draw from its terms
+    tids[topical] = topic_terms[rows, rng.integers(0, topic_terms.shape[1], rows.shape[0])]
 
     ws = rng.lognormal(mean=0.0, sigma=0.7, size=nnz).astype(np.float32)
     # dedup term ids within a doc (keep max weight) for a well-formed sparse vector

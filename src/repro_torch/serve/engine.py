@@ -655,12 +655,16 @@ class RetrievalEngine:
         the set, so all shards flip together under the one epoch bump. Needs
         ``retriever_factory``; load, build and warm-up all happen on the
         calling thread, so a failing load or shard build raises HERE and the
-        engine keeps serving on the old retriever."""
+        engine keeps serving on the old retriever. A factory that opens a
+        directory itself (``takes_paths``: the process-group front end of
+        ``serve/group.py``, whose ranks each load their own shard) is handed
+        the path."""
         from repro_torch.index.store import load_index_auto
 
         if self.retriever_factory is None:
             raise RuntimeError("swap_index needs retriever_factory= at engine construction")
-        if isinstance(path_or_index, (str, os.PathLike)):
+        takes_paths = getattr(self.retriever_factory, "takes_paths", False)
+        if isinstance(path_or_index, (str, os.PathLike)) and not takes_paths:
             path_or_index = load_index_auto(os.fspath(path_or_index), mmap=True,
                                             device=_retriever_device(self.retriever))
         return self.swap_retriever(self.retriever_factory(path_or_index), warm=warm)

@@ -12,8 +12,11 @@ shed load from crashes without string-matching:
 * ``AdmissionRejected``  — the per-tenant token-bucket quota refused the
                            request; raised synchronously from ``search()``,
                            no queue slot was used.
+* ``ShardGroupError``    — a rank of the process group that holds the shard
+                           set failed or went silent (``serve/group.py``);
+                           the request was not served, and no later one is.
 
-All three subclass ``ServeError`` (a ``RuntimeError``), so callers catching
+All four subclass ``ServeError`` (a ``RuntimeError``), so callers catching
 ``RuntimeError`` keep working.
 """
 
@@ -48,3 +51,9 @@ class AdmissionRejected(ServeError):
     def __init__(self, msg: str, request_id: Optional[str] = None, tenant: Optional[str] = None):
         super().__init__(msg, request_id)
         self.tenant = tenant
+
+
+class ShardGroupError(ServeError):
+    """The process group serving the shard set failed: a rank died, raised or
+    missed a collective's timeout. Every request the group front end holds
+    fails with it."""

@@ -50,8 +50,10 @@ def make_train_step(loss_fn: Callable[[Any, dict], tuple[torch.Tensor, dict]], o
     def value_and_grad(lowp, batch):
         leaves = [x for x in tree_leaves(lowp) if x.requires_grad]
         loss, metrics = loss_fn(lowp, batch)
-        grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, [g.float() for g in grads]
+        grads = list(torch.autograd.grad(loss, leaves))
+        for i in range(len(grads)):  # each low-precision gradient is freed as its float32 copy is made
+            grads[i] = grads[i].float()
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
     def compute_grads(params, batch):
         lowp = tree_map(

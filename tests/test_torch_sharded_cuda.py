@@ -101,3 +101,30 @@ def test_swap_index_of_a_shard_set_on_the_card(built, cuda, tmp_path):
         assert engine.stats.summary()["failures"] == 0
     finally:
         engine.shutdown()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [[], ["--shards", "3", "--swap-mid-run", "--sweep-k", "1,5,10"]],
+                         ids=["single", "3-shard-host-loop"])
+def test_the_serving_launchers_job_on_the_card_equals_impl_ref(cuda, extra, tmp_path, capsys):
+    """``launch/serve.py``'s job through the kernels on the card: every
+    response (and the k sweep's) equal to a pinned ``impl="ref"`` retriever
+    over the index its epoch served (the swap rebuilds the index, and the
+    k-means on the card uses atomics) on ids, θ and both counters."""
+    from repro_torch.core.config import DynamicParams
+    from repro_torch.launch.serve import parse_args, serve_job
+
+    argv = ["--n-docs", "4096", "--vocab", "1024", "--requests", "32", "--max-batch", "8",
+            "--index-dir", str(tmp_path / "index")] + extra
+    run = serve_job(parse_args(argv))
+    assert run.summary["failures"] == 0 and (not extra or run.recompiles == 0)
+    refs = [Retriever.from_index(ix, run.static_cfg, params=run.params, impl="ref", device=cuda)
+            for ix in (store.load_index_auto(str(tmp_path / "index"), device=cuda), run.swapped) if ix is not None]
+    for i, ((t, w), resp) in enumerate(zip(run.queries, run.responses)):
+        _same([resp], refs[resp.epoch].search_batch([SearchRequest(t, w)]), f"launcher, request {i}")
+    if extra:
+        assert {r.epoch for r in run.sweep} == {1}
+        want = [r for k in (1, 5, 10) for r in refs[1].search_batch(
+            [SearchRequest(t, w, params=DynamicParams(k=k, beta=run.params.beta)) for t, w in run.queries])]
+        _same(run.sweep, want, "launcher sweep")
+    assert "failures 0" in capsys.readouterr().out

@@ -11,7 +11,12 @@ runs every case on every rank:
   * ``distributed_topk`` equal to one canonical top-k over the whole row,
     ties across ranks included, and ``pmax_scalar``;
   * ``make_mesh_retriever`` against the JAX package's ``retrieve_distributed``;
-  * sharded dense LSP through the group, equal to the host loop.
+  * sharded dense LSP through the group, equal to the host loop;
+  * the serving launcher's job (``launch/serve.py``) with rank 0's engine
+    driving every rank through the group front end (``serve/group.py``),
+    across a swap mid-run and a k sweep, equal to the same job through the
+    host loop; and a follower that goes silent after the opening, which
+    fails every pending request of rank 0's engine with ``ShardGroupError``.
 The host loop of sharded dense is held here too, without a world: its ids
 equal JAX's ``shard_dense_index`` shards run one by one through JAX's
 ``retrieve_dense`` and merged canonically, and its recall@10 against the
@@ -57,6 +62,9 @@ CONFIGS = [
     ("lsp1_block_budget", dict(variant="lsp1", gamma=16, gamma0=4, block_budget=12), [dict(k=10, mu=0.5)] * 16),
 ]
 MESH_CFG = dict(variant="lsp0", k=10, gamma=8, gamma0=2, beta=0.5)
+# the serving launcher's job under the world: 8 superblocks cut raggedly into 3
+LAUNCH_ARGV = ["--n-docs", "1024", "--vocab", "256", "--requests", "8", "--max-batch", "4", "--swap-mid-run",
+               "--sweep-k", "1,5", "--device", "cpu"]
 
 
 def _dense_cfg(n: int) -> dict:
@@ -102,6 +110,7 @@ def world(request, tiny_index, tiny_corpus, dense, tmp_path_factory):
         dense_shards=str(root / "dense.pt"),
         dense_cfg=_dense_cfg(n),
         dense_q=q,
+        launch_argv=LAUNCH_ARGV,
     )
     (root / "world").mkdir()
     return n, spawn_world(n, spec, str(root / "world")), spec
@@ -221,3 +230,40 @@ def test_shard_count_must_divide_the_dense_superblocks(dense):
     _, didx, _ = dense
     with pytest.raises(ValueError, match="equal shards"):
         shard_dense_index(didx, 4)
+
+
+def test_launcher_front_end_equals_the_host_loop(world):
+    """``launch/serve.py`` under the world: rank 0's engine drives every rank
+    through the group front end, across a swap mid-run and a k sweep, and
+    every response equals the same job's through the host loop in one
+    process on every field of the result and on the point served. Which
+    epoch served a request of the first half depends on when the swap
+    flipped; every request of the second half came after it."""
+    import contextlib
+    import io
+
+    from repro_torch.launch.serve import parse_args, serve_job
+
+    n, ranks, spec = world
+    got = ranks[0]["launcher"]
+    assert all(ranks[r]["launcher"] is None for r in range(1, n))  # the followers return nothing
+    with contextlib.redirect_stdout(io.StringIO()):
+        want = serve_job(parse_args(LAUNCH_ARGV + ["--shards", str(n)]))
+    assert "shard_map transport" in got["printed"] and "backend shard_map" in got["printed"]
+    assert got["summary"] == {"requests": 8 + 16, "swaps": 1, "failures": 0} and got["recompiles"] == 0
+    for name in ("responses", "sweep"):
+        wants = [r for r in getattr(want, name)]
+        assert len(got[name]) == len(wants) == (8 if name == "responses" else 16)
+        for i, (g, w) in enumerate(zip(got[name], wants)):
+            for f, v in g.items():
+                if f != "epoch":
+                    np.testing.assert_array_equal(v, getattr(w, f), err_msg=f"{name} {i}: {f}")
+    assert [r["epoch"] for r in got["responses"][4:]] == [1] * 4  # the second half ran on the swapped-in set
+
+
+def test_a_dead_follower_fails_the_pending_requests_with_a_typed_error(world):
+    n, ranks, _ = world
+    got = ranks[0]["dead_follower"]
+    assert got == {"outcomes": ["ShardGroupError"] * 9, "failures": 9}
+    assert ranks[1]["dead_follower"] == "open"  # it took part in the opening, then went silent
+    assert all(ranks[r]["dead_follower"] == "RuntimeError" for r in range(2, n))

@@ -1,13 +1,17 @@
-"""The port's optimizer, trainer and checkpoints against the JAX package's.
+"""The port's optimizers, trainer and checkpoints against the JAX package's.
 
 The tiny encoder config of ``tests/test_train_fault_tolerance.py``; JAX
 initialises its weights and ``repro_torch.models.convert`` carries them across.
-Tolerances: one AdamW update and the schedule rtol 1e-6 (the same float32
-operations in the same order; ``cos``, ``pow`` and the per-leaf sums of the
-clipping norm may round their last bit otherwise); six trainer steps rtol 1e-4,
-atol 1e-6 (float32 matrix products summed in another order, then Adam's
-division by sqrt(v) amplifies them). Checkpoints, resume and the converter:
-equal to the bit.
+The decoder-only LMs (qwen3-4b and phi3.5-moe at their ``reduced()`` configs,
+stacked, through remat, with Adafactor) go the other way: the port draws the
+weights and the converter carries them to JAX.
+Tolerances: one AdamW or Adafactor update and the schedule rtol 1e-6 (the
+same float32 operations in the same order; ``cos``, ``pow``, means and the
+per-leaf sums of the clipping norm may round their last bit otherwise); six
+trainer steps rtol 1e-4, atol 1e-6 (float32 matrix products summed in another
+order, then Adam's division by sqrt(v), or Adafactor's by its factored
+moments, amplifies them). Checkpoints, resume and the converter: equal to the
+bit.
 """
 
 import os
@@ -20,23 +24,30 @@ import pytest
 import torch
 
 import repro.ckpt.checkpoint as jax_ckpt
+import repro.models.attention as jattn
+import repro.models.ffn as jffn
+import repro.models.stacked as jstacked
+import repro.models.transformer as jtf
 from repro.common.tree_utils import flatten_with_paths as jax_flatten_with_paths
+from repro.configs import get_arch as jax_get_arch
 from repro.configs.base import LMCfg as JaxLMCfg
 from repro.data.pipeline import CounterPipeline as JaxCounterPipeline, PipelineConfig as JaxPipelineConfig
+from repro.data.pipeline import lm_synthetic_batch as jax_lm_synthetic_batch
 from repro.data.pipeline import splade_synthetic_batch as jax_splade_synthetic_batch
 from repro.models.sparse_encoder import SpladeBatch as JaxSpladeBatch, init_encoder as jax_init_encoder
 from repro.models.sparse_encoder import splade_loss as jax_splade_loss
-from repro.optim import AdamW as JaxAdamW
+from repro.optim import Adafactor as JaxAdafactor, AdamW as JaxAdamW
 from repro.train.trainer import Trainer as JaxTrainer, TrainerConfig as JaxTrainerConfig
 from repro.train.trainer import TrainState as JaxTrainState
 from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.common.tree_utils import flatten_with_paths, tree_map
-from repro_torch.configs.base import LMCfg
-from repro_torch.data.pipeline import CounterPipeline, PipelineConfig, splade_synthetic_batch
+from repro_torch.configs.base import LMCfg, get_arch
+from repro_torch.data.pipeline import CounterPipeline, PipelineConfig, lm_synthetic_batch, splade_synthetic_batch
 from repro_torch.launch import train as launch_train
-from repro_torch.models.convert import from_arrays
+from repro_torch.models.convert import from_arrays, to_arrays
 from repro_torch.models.sparse_encoder import SpladeBatch, splade_loss
-from repro_torch.optim import AdamW
+from repro_torch.models.stacked import init_lm_stacked, lm_loss_stacked
+from repro_torch.optim import Adafactor, AdafactorState, AdamW
 from repro_torch.train.trainer import Trainer, TrainerConfig, TrainState, make_train_step
 
 TINY = dict(n_layers=2, d_model=32, n_heads=2, n_kv_heads=2, d_ff=64, vocab=256, head_dim=16, tie_embeddings=True)
@@ -313,5 +324,146 @@ def test_launcher_trains_the_reduced_encoder_on_the_cpu(tmp_path, capsys):
                        "--ckpt-dir", str(tmp_path)])
     assert "[train] finished at step 3" in capsys.readouterr().out
     assert ckpt.latest_step(str(tmp_path)) == 3
-    with pytest.raises(NotImplementedError, match="Adafactor and the LM training step.*ROADMAP queue 1 item 6"):
-        launch_train.main(["--arch", "qwen3-4b", "--device", "cpu"])
+
+
+def test_launcher_trains_checkpoints_and_resumes_a_reduced_lm_on_the_cpu(tmp_path, capsys):
+    """``--arch qwen3-4b --reduced``: 2 steps checkpointed, a second start
+    restores them and runs 2 more, equal to the bit to 4 straight steps of
+    the same job."""
+    argv = ["--arch", "qwen3-4b", "--reduced", "--device", "cpu", "--steps", "2", "--batch", "4", "--seq", "16",
+            "--ckpt-dir", str(tmp_path), "--ckpt-every", "2"]
+    launch_train.main(argv)
+    launch_train.main(argv)
+    out = capsys.readouterr().out
+    assert "[trainer] restored checkpoint at step 2" in out and "[train] finished at step 4" in out
+    cfg, trainer, pipe = launch_train.lm_job("qwen3-4b", 4, 16, reduced=True, device="cpu")
+    straight = trainer.run(trainer.init_or_restore(), pipe, 4, log_every=0)
+    assert isinstance(straight.opt_state, AdafactorState)
+    resumed, step = ckpt.restore_checkpoint(str(tmp_path), straight)
+    assert step == 4
+    _assert_trees_equal(_flat_np(resumed), _flat_np(straight))
+    with pytest.raises(SystemExit):
+        launch_train.main(["--device", "cpu"])  # neither --arch nor --splade
+    with pytest.raises(ValueError, match="--arch schnet is a gnn arch"):
+        launch_train.main(["--arch", "schnet", "--reduced", "--device", "cpu"])
+
+
+# ------------------------------------------------------------------ Adafactor
+def test_adafactor_updates_equal_jax():
+    """Five updates on 0-, 1-, 2- and 3-D float leaves (the stacked
+    ``[n_groups, in, out]`` shape factors over its last two axes) and an int
+    leaf, which has no gradient and passes through; moments and the step too."""
+    rng = np.random.default_rng(0)
+    params = {"s": np.asarray(rng.standard_normal(), np.float32), "b": rng.standard_normal(5).astype(np.float32),
+              "w": rng.standard_normal((6, 4)).astype(np.float32),
+              "stacked": rng.standard_normal((3, 4, 5)).astype(np.float32), "i": np.arange(4, dtype=np.int32)}
+    jopt, opt = JaxAdafactor(lr=1e-2), Adafactor(lr=1e-2)
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    js = jopt.init(jp)
+    tp = {k: torch.from_numpy(np.array(v, copy=True)) for k, v in params.items()}
+    ts = opt.init(tp)
+    for scale in (0.1, 30.0, 1.0, 2.0, 1e-4):  # gradients over five orders of magnitude
+        g = {k: np.asarray(rng.standard_normal(np.shape(v)) * scale, np.float32) for k, v in params.items() if k != "i"}
+        jp, js, _ = jopt.update({**jax.tree_util.tree_map(jnp.asarray, g), "i": np.zeros(4, jax.dtypes.float0)}, js, jp)
+        tp, ts, metrics = opt.update({**{k: torch.from_numpy(v) for k, v in g.items()}, "i": None}, ts, tp)
+    assert metrics == {} and int(ts.step) == int(js.step) == 5 and ts.step.dtype == torch.int32
+    want, got = _jax_flat((jp, js)), _flat_np((tp, ts))
+    assert list(got) == list(want)
+    for k, v in got.items():
+        assert v.shape == want[k].shape and v.dtype == want[k].dtype, k
+        np.testing.assert_allclose(v, want[k], rtol=1e-6, atol=0, err_msg=k)
+    assert got["1/moments/b/vc"].shape == (0,) and got["1/moments/stacked/vr"].shape == (3, 4)
+    np.testing.assert_array_equal(got["0/i"], params["i"])
+
+
+# ------------------------------------------------------------------ LM training
+LM_ARCHS = ["qwen3-4b", "phi3.5-moe-42b-a6.6b"]
+LM_B, LM_S = 4, 16
+
+
+def _to_jax(tree):
+    """The port's parameter NamedTuples (numpy leaves) as the JAX package's classes."""
+    classes = {c.__name__: c for c in (jtf.LMParams, jstacked.StackedLMParams, jtf.LayerParams, jattn.AttnParams,
+                                       jffn.DenseFFNParams, jffn.MoEParams)}
+    if tree is None:
+        return None
+    if type(tree).__name__ in classes:
+        return classes[type(tree).__name__](*(_to_jax(v) for v in tree))
+    if isinstance(tree, tuple):
+        return tuple(_to_jax(v) for v in tree)
+    return jnp.asarray(tree)
+
+
+def _lm_port_params(arch):
+    return init_lm_stacked(get_arch(arch).reduced().lm, torch.Generator().manual_seed(0), device="cpu")
+
+
+def _lm_trainer(arch, accum=1, ckpt_dir=""):
+    cfg = get_arch(arch).reduced().lm
+    return Trainer(lambda p, b: lm_loss_stacked(p, cfg, b["tokens"], b["labels"], remat=True), Adafactor(lr=1e-3),
+                   TrainerConfig(ckpt_dir=ckpt_dir, ckpt_every=2, grad_accum=accum, compute_dtype=torch.float32,
+                                 ckpt_async=False),
+                   lambda: _lm_port_params(arch))
+
+
+def _lm_pipe(arch):
+    return CounterPipeline(PipelineConfig(global_batch=LM_B), lm_synthetic_batch(get_arch(arch).reduced().lm.vocab,
+                                                                                LM_B, LM_S))
+
+
+def _jax_lm_trainer(arch, accum=1):
+    jcfg = jax_get_arch(arch).reduced().lm
+    jp = _to_jax(to_arrays(_lm_port_params(arch)))
+    return JaxTrainer(lambda p, b: jstacked.lm_loss_stacked(p, jcfg, b["tokens"], b["labels"], remat=True),
+                      JaxAdafactor(lr=1e-3), JaxTrainerConfig(grad_accum=accum, compute_dtype=jnp.float32),
+                      lambda: jp)
+
+
+def _jax_lm_pipe(arch):
+    return JaxCounterPipeline(JaxPipelineConfig(global_batch=LM_B),
+                              jax_lm_synthetic_batch(jax_get_arch(arch).reduced().lm.vocab, LM_B, LM_S))
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_six_lm_trainer_steps_equal_jax(arch, accum):
+    """Stacked, remat, float32, Adafactor: the loss of every step and every
+    leaf of the state after six."""
+    jt = _jax_lm_trainer(arch, accum)
+    jlosses, losses = [], []
+    jstate = jt.init_or_restore()
+    jit = _jax_lm_pipe(arch).iterate(0)
+    for _ in range(6):
+        jstate, jm = jt.step_fn(jstate, next(jit))
+        jlosses.append(float(jm["loss"]))
+    jit.close()
+    t = _lm_trainer(arch, accum)
+    got = t.run(t.init_or_restore(), _lm_pipe(arch), 6, log_every=0,
+                on_step=lambda step, m: losses.append(float(m["loss"])))
+    np.testing.assert_allclose(losses, jlosses, **STEP_TOL)
+    want = _jax_flat(jstate)
+    flat = _flat_np(got)
+    assert list(flat) == list(want)
+    for k, v in flat.items():
+        np.testing.assert_allclose(v, want[k], **STEP_TOL, err_msg=k)
+
+
+def test_adafactor_checkpoint_restores_across_packages(tmp_path, monkeypatch):
+    """The port's checkpoint of an Adafactor state (empty ``vc`` leaves
+    included) restores in JAX to the bit, and JAX's in the port."""
+    arch = "qwen3-4b"
+    t = _lm_trainer(arch, ckpt_dir=str(tmp_path / "port"))
+    state = t.run(t.init_or_restore(), _lm_pipe(arch), 2, log_every=0)
+    jt = _jax_lm_trainer(arch)
+    target = jt.init_or_restore()
+    restored, step = jax_ckpt.restore_checkpoint(str(tmp_path / "port"), target)
+    assert step == 2
+    _assert_trees_equal(_jax_flat(restored), _flat_np(state))
+    assert any(v.shape == (0,) for k, v in _flat_np(state).items() if k.endswith("/vc"))
+
+    jstate = jt.run(target, _jax_lm_pipe(arch), 2, log_every=0)
+    monkeypatch.setattr(jax_ckpt, "zstandard", None)  # the port reads zlib only
+    jax_ckpt.save_checkpoint(str(tmp_path / "jax"), 2, jstate)
+    got, step = ckpt.restore_checkpoint(str(tmp_path / "jax"), _lm_trainer(arch).init_or_restore())
+    assert step == 2 and got.opt_state.step.dtype == torch.int32 and got.opt_state.step.ndim == 0
+    _assert_trees_equal(_flat_np(got), _jax_flat(jstate))

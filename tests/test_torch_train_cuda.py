@@ -112,3 +112,67 @@ def test_a_card_step_is_deterministic_under_deterministic_algorithms(cuda, monke
     for k in runs[0]:
         assert torch.equal(runs[0][k], runs[1][k]), k
     assert float(global_norm(runs[0])) > 0
+
+
+# ------------------------------------------------------------------ Adafactor and the LM step
+def _lm_cfg():
+    from repro_torch.configs.base import get_arch
+
+    return get_arch("phi3.5-moe-42b-a6.6b").reduced().lm  # MoE routing and the capacity cut under remat
+
+
+@pytest.mark.cuda
+def test_adafactor_on_the_card_equals_the_cpu(cuda):
+    from repro_torch.optim import Adafactor
+
+    rng = np.random.default_rng(0)
+    shapes = {"s": (), "b": (7,), "w": (33, 17), "stacked": (3, 40, 24)}
+    params = {k: np.asarray(rng.standard_normal(s), np.float32) for k, s in shapes.items()}
+    grads = [{k: np.asarray(rng.standard_normal(s) * scale, np.float32) for k, s in shapes.items()}
+             for scale in (0.1, 30.0, 1.0)]
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        opt = Adafactor(lr=1e-2)
+        p = {k: torch.from_numpy(v.copy()).to(dev) for k, v in params.items()}
+        state = opt.init(p)
+        for g in grads:
+            p, state, _ = opt.update({k: torch.from_numpy(v).to(dev) for k, v in g.items()}, state, p)
+        assert state.step.device.type == dev.type
+        out.append({k: v.cpu().numpy() for k, v in flatten_with_paths((p, state)).items()})
+    for k, v in out[1].items():
+        np.testing.assert_allclose(out[0][k], v, rtol=1e-5, atol=1e-7, err_msg=k)
+
+
+def _lm_loss_and_grads(device, remat):
+    from repro_torch.models.stacked import init_lm_stacked, lm_loss_stacked
+    from repro_torch.data.pipeline import lm_synthetic_batch
+
+    cfg = _lm_cfg()
+    params = tree_map(lambda x: x.to(device).requires_grad_(),
+                      init_lm_stacked(cfg, torch.Generator().manual_seed(0), device="cpu"))
+    b = lm_synthetic_batch(cfg.vocab, 4, 32)(np.random.default_rng(0), 0)
+    loss, _ = lm_loss_stacked(params, cfg, torch.from_numpy(b["tokens"]).to(device),
+                              torch.from_numpy(b["labels"]).to(device), remat=remat)
+    grads = torch.autograd.grad(loss, list(flatten_with_paths(params).values()))
+    return float(loss.detach()), dict(zip(flatten_with_paths(params), (g.cpu() for g in grads)))
+
+
+@pytest.mark.cuda
+def test_lm_gradients_through_remat_on_the_card_equal_the_cpu(cuda, monkeypatch):
+    """The stacked MoE LM's loss and gradients through remat: on the card
+    against the CPU, and under deterministic algorithms, to the bit against
+    the card's own pass without remat (the recomputation repeats the
+    forward's routing exactly)."""
+    want_loss, want = _lm_loss_and_grads(torch.device("cpu"), remat=True)
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        loss, got = _lm_loss_and_grads(cuda, remat=True)
+        plain_loss, plain = _lm_loss_and_grads(cuda, remat=False)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    np.testing.assert_allclose(loss, want_loss, **TOL)
+    assert loss == plain_loss
+    for k, g in got.items():
+        np.testing.assert_allclose(g.numpy(), want[k].numpy(), **TOL, err_msg=k)
+        assert torch.equal(g, plain[k]), k

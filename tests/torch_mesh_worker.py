@@ -3,7 +3,9 @@
 ``spawn_world(world, spec, root)`` starts ``world`` processes with the
 ``spawn`` method, each joining one gloo process group through a file store
 under ``root``, runs every case of ``spec`` on every rank in that one world,
-and returns each rank's results (host numpy arrays) by rank.
+and returns each rank's results (host numpy arrays) by rank. The last two
+cases drive the serving launcher's job through the rank-0 group front end,
+and a front end whose rank 1 goes silent on a group of its own.
 
 Every rank reports as it goes (joined, each case done, its result), and the
 parent's wait runs from the last report of any rank, so a world on a loaded
@@ -26,6 +28,7 @@ import queue
 import traceback
 
 RANK_TIMEOUT_S = 120  # the longest a world may go without a report from any rank
+DEAD_TIMEOUT_S = 3  # the collectives' timeout on the group whose follower goes silent
 
 
 def _fields(res) -> dict:
@@ -83,7 +86,78 @@ def _run_cases(spec: dict, report) -> dict:
     dense_run = make_sharded_dense_retriever(dense_shards, RetrievalConfig(**spec["dense_cfg"]),
                                              group=dist.group.WORLD, impl="ref")
     out["dense"] = tuple(t.numpy() for t in dense_run(torch.from_numpy(spec["dense_q"])))
+    report("dense")
+
+    out["launcher"] = _launcher_case(spec)
+    report("launcher")
+    out["dead_follower"] = _dead_follower_case(spec, StaticConfig(**spec["configs"][0][1]))
     return out
+
+
+def _response_fields(r) -> dict:
+    return {f: getattr(r, f) for f in ("doc_ids", "scores", "theta", "n_superblocks_visited", "n_blocks_scored",
+                                       "shard_candidates", "params_served", "epoch")}
+
+
+def _launcher_case(spec: dict):
+    """``launch/serve.py``'s job under the world: rank 0's engine drives every
+    rank through the group front end (a swap mid-run, a k sweep); rank 0
+    returns each response's fields and what the job printed."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.serve import parse_args, serve_job
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        run = serve_job(parse_args(spec["launch_argv"] + ["--shards", str(dist.get_world_size())]),
+                        group=dist.group.WORLD)
+    if run is None:  # a follower
+        return None
+    return {"responses": [_response_fields(r) for r in run.responses],
+            "sweep": [_response_fields(r) for r in run.sweep], "recompiles": run.recompiles,
+            "summary": {k: run.summary[k] for k in ("requests", "swaps", "failures")}, "printed": buf.getvalue()}
+
+
+def _dead_follower_case(spec: dict, scfg):
+    """Rank 1 takes part in the opening of the shard set and then goes
+    silent, on a group whose collectives time out after DEAD_TIMEOUT_S:
+    rank 0's engine must fail every pending request, and the next one, with
+    the typed ``ShardGroupError``. The other followers' wait for the next
+    operation times out too."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from repro_torch.api import SearchRequest
+    from repro_torch.serve.errors import ShardGroupError
+    from repro_torch.serve.group import Follower, GroupFrontEnd
+
+    group = dist.new_group(backend="gloo", timeout=timedelta(seconds=DEAD_TIMEOUT_S))
+    rank = dist.get_rank()
+    if rank == 1:
+        return Follower(group, "cpu").step()
+    if rank > 1:
+        try:
+            Follower(group, "cpu").run()
+        except RuntimeError as exc:  # the wait for rank 0's next operation times out
+            return type(exc).__name__
+        return "ran to a shutdown"
+    front = GroupFrontEnd(group, "cpu")
+    eng = front.open(spec["sharded_dir"], scfg, impl="ref").serve(max_batch=4, nq_max=64)
+    futs = [eng.search(SearchRequest(t, w)) for t, w in spec["queries"][:8]]
+    outcomes = []
+    for f in futs + [eng.search(SearchRequest(*spec["queries"][0]))]:
+        try:
+            f.result(timeout=RANK_TIMEOUT_S)
+            outcomes.append("served")
+        except ShardGroupError:
+            outcomes.append("ShardGroupError")
+    eng.shutdown()
+    front.close()
+    return {"outcomes": outcomes, "failures": eng.stats.summary()["failures"]}
 
 
 def _rank_main(rank: int, world: int, root: str, spec: dict, results) -> None:
