@@ -45,7 +45,24 @@ host loop; builds a dense index
 of 1,000,000 synthetic 64-dim candidate embeddings on the card and answers
 256 query rows with ``retrieve_dense`` (kernel path, ``impl="ref"``,
 exhaustive) and through the dense index cut into 4 shards (recall@10
-against single-device, dequant_matmul on every shard); trains the SPLADE
+against single-device, dequant_matmul on every shard); runs the recsys
+models at full width, weights drawn on the card from a seeded CUDA
+generator: dlrm-rm2 (6.656 GB of tables) and din (0.793 GB) at serve_p99
+(512 rows; ms, peak GB, the profiler's kernels and idle share) and
+serve_bulk (262,144 rows; DIN in chunks of 16,384), each held to the CPU
+port on 16 rows, and the retrieval_cand sweep of 1 user over 1,000,000
+candidates (chunks of 8,192 and 4,096) with its top 10 held to the CPU port;
+mind (2.586 GB): 512 users' interests against the CPU port, its item tower
+over 1,000,000 candidate items into a dense LSP index built on the card, and
+64 users' 256 interest rows through ``retrieve_dense`` in four calls of 64
+(dequant_matmul counted) against ``impl="ref"`` (recall@10 >= 0.99) and
+exhaustive, each user's four exact per-interest top 10s merged by score
+equal to the top 10 of ``mind_score_candidates`` over all 1,000,000; runs
+schnet at full width over the molecule batch (128 graphs x 30 atoms x 64
+edges, ``molecule_batch_forward``), full_graph_sm (2,708 nodes) and
+minibatch_lg's sampled subgraph (169,984 nodes, 168,960 edges; the parent
+graph's edges cut to a tenth of Reddit's), each held to the CPU port in
+float32; trains the SPLADE
 encoder at full width (``splade_100m_config``, 110 M parameters) through the
 launcher's ``--splade`` job, bf16 compute, with falling ``ce``, checkpoints a
 second run at step 10, restores it in a fresh ``Trainer`` and runs it to 20
@@ -80,8 +97,10 @@ padded past what shared memory holds, so every lookup goes to L2; times
 idle share). Each path's launch counts are set to 0 just before it
 runs and read just after. The second-to-last line is a JSON object of
 per-kernel numbers (with a ``"path": "sharded"`` row for each kernel of the
-sharded paths, over its per-shard launches, and a ``"path": "encoder"`` row
-for each kernel of the learned index's path), the last ``{"ok": true, ...}``.
+sharded paths, over its per-shard launches, a ``"path": "mind"`` row for
+dequant_matmul at the shapes MIND's retrieval gave it, and a ``"path":
+"encoder"`` row for each kernel of the learned index's path), the last
+``{"ok": true, ...}``.
 Any failed check raises and exits non-zero; without a CUDA device it exits 1
 before printing any result. It imports neither JAX nor the JAX package.
 """
@@ -167,6 +186,24 @@ TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARMUP = "qwen3-4b", 20, 
 TRAIN_CUT_LAYERS, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 2, 2, 64
 TRAIN_CPU_RTOL = 1e-4  # float32 on both devices (TF32 off), sums in another order; per leaf, in norm
 TRAIN_PHI_STEPS = 3
+# recsys phase: dlrm-rm2, din and mind at full width, weights from a seeded CUDA generator, data
+# from seeded numpy; the recsys shapes serve_p99 (512 rows) and serve_bulk (262,144; DIN in chunks
+# of 16,384, as its [B, 100, 216] attention input alone is 22.6 GB at once), retrieval_cand (1 user
+# x 1,000,000 candidates in chunks of 8,192 for DLRM and 4,096 for DIN, launch/specs.py's); mind:
+# 1,000,000 candidate items (distinct item ids, Zipf categories) into the dense LSP index, 64 users'
+# 4 interests through retrieve_dense at the dense phase's settings
+REC_SEED, REC_REPS = 0, 10
+REC_P99, REC_BULK, REC_CANDS = 512, 262_144, 1_000_000
+DLRM_CHUNK, DIN_CHUNK, DIN_BULK_CHUNK = 8192, 4096, 16_384
+MIND_USERS, MIND_ZIPF = 64, 1.2
+REC_CPU_ROWS = 16  # rows of a batch held to the CPU port
+REC_CPU_RTOL = 1e-4  # card against CPU in float32 (TF32 off), sums in another order: max abs error / max |reference|
+MERGE_RTOL = 1e-5  # the per-interest merge against mind_score_candidates: two float32 einsums, another order
+# GNN phase: schnet at full width over the molecule, full_graph_sm and minibatch_lg shapes;
+# minibatch_lg's parent graph has Reddit's 232,965 nodes and a tenth of its 114,615,892 edges
+# (host generation; the sampled subgraph's shapes do not depend on the edge count)
+GNN_SEED, GNN_PARENT_EDGES = 0, 11_461_589
+GNN_CPU_RTOL = 1e-4  # card against CPU in float32; the card's segment sums use atomics
 # name -> (core.ops attribute, CUDA source, the TPU kernel it replaces)
 KERNELS = {
     "sbmax": ("sbmax_kernel", "src/repro_torch/csrc/sbmax.cu", "src/repro/kernels/sbmax/kernel.py:51"),
@@ -1813,6 +1850,391 @@ def encoder_phase(device, core_ops, sites):
     return launches, captured
 
 
+def _wall_ms(fn, reps=REC_REPS):
+    """Median host-clock ms of ``fn()`` over ``reps`` calls, each ended by a
+    device sync (one warm-up call first)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def _held_to_cpu(label, got, want, rtol):
+    """A card result against the CPU port's on the same inputs: max abs error
+    <= rtol x max |reference|."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    import torch
+
+    check(tuple(got.shape) == tuple(want.shape), f"{label}: shape {tuple(got.shape)} against {tuple(want.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{label}: finite values")
+    err, ref = float((got - want).abs().max()), float(want.abs().max())
+    log(f"{label}: card against the CPU port max abs error {err:.3g} (max |reference| {ref:.3g}, bound "
+        f"{rtol} x it)")
+    check(err <= rtol * ref, f"{label}: card against CPU {err} > {rtol} x {ref}")
+
+
+def _peak_gb(device):
+    import torch
+
+    return torch.cuda.max_memory_allocated(device) / 1e9
+
+
+def _table_gb(tables):
+    return tables.table.numel() * tables.table.element_size() / 1e9
+
+
+def _cand_sweep(score_chunk, n, chunk):
+    """The top K (values, candidate ids) of candidates 0..n-1, scored by
+    ``score_chunk(lo, hi)`` in chunks of ``chunk``."""
+    import torch
+
+    return torch.topk(torch.cat([score_chunk(lo, min(lo + chunk, n)) for lo in range(0, n, chunk)]), K)
+
+
+def dlrm_din_serving(device):
+    """dlrm-rm2 and din at full width: serve_p99 (timed, profiled, its first
+    REC_CPU_ROWS rows held to the CPU port), serve_bulk (DLRM in one call, DIN
+    in chunks of DIN_BULK_CHUNK) and the retrieval_cand sweep of 1 user over
+    REC_CANDS candidates (DLRM: candidate ids in field 0, chunks of
+    DLRM_CHUNK; DIN: candidate items, chunks of DIN_CHUNK), its top K held
+    to the CPU port."""
+    import numpy as np
+    import torch
+
+    from repro_torch.common.tree_utils import tree_map
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import recsys as R
+
+    rng = np.random.default_rng(REC_SEED)
+    # ---- dlrm-rm2
+    rc = get_arch("dlrm-rm2").recsys
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    p = R.init_dlrm(rc, torch.Generator(device=device).manual_seed(REC_SEED), device=device)
+    torch.cuda.synchronize(device)
+    log(f"recsys: dlrm-rm2 {rc.n_sparse} x {rc.vocab_sizes[0]:,} rows padded to {p.tables.table.shape[0]:,} x "
+        f"{rc.embed_dim}: {_table_gb(p.tables):.3f} GB of tables (float32), drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s; bottom MLP {(rc.n_dense,) + rc.bot_mlp}, top MLP "
+        f"{(p.top[0].shape[0],) + rc.top_mlp}")
+    check(tuple(p.tables.table.shape) == (26_000_384, 64) and p.top[0].shape[0] == 415, "dlrm-rm2 at full width")
+    vocab = np.asarray(rc.vocab_sizes)
+
+    def dlrm_batch(n):
+        dense = np.log1p(rng.exponential(4.0, (n, rc.n_dense))).astype(np.float32)  # log-transformed counts
+        ids = rng.integers(0, vocab, (n, rc.n_sparse)).astype(np.int32)
+        return torch.from_numpy(dense).to(device), torch.from_numpy(ids).to(device)
+
+    p_cpu = tree_map(lambda x: x.cpu(), p)
+    with torch.no_grad():
+        dense, ids = dlrm_batch(REC_P99)
+        out = R.dlrm_forward(p, rc, dense, ids)
+        check(tuple(out.shape) == (REC_P99,), "dlrm-rm2 serve_p99 logits [512]")
+        _held_to_cpu("dlrm-rm2 serve_p99", out[:REC_CPU_ROWS],
+                     R.dlrm_forward(p_cpu, rc, dense[:REC_CPU_ROWS].cpu(), ids[:REC_CPU_ROWS].cpu()), REC_CPU_RTOL)
+        ms = _wall_ms(lambda: R.dlrm_forward(p, rc, dense, ids))
+        log(f"recsys: dlrm-rm2 serve_p99 ({REC_P99} rows): median {ms:.3f} ms ({REC_P99 / ms * 1e3:,.0f} rows/s); "
+            f"peak device memory {_peak_gb(device):.2f} GB")
+        profile_call(f"dlrm-rm2 serve_p99 ({REC_P99} rows)", lambda: R.dlrm_forward(p, rc, dense, ids).cpu())
+        dense, ids = dlrm_batch(REC_BULK)
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        out = R.dlrm_forward(p, rc, dense, ids)
+        torch.cuda.synchronize(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        check(tuple(out.shape) == (REC_BULK,) and bool(torch.isfinite(out).all()), "dlrm-rm2 serve_bulk logits")
+        log(f"recsys: dlrm-rm2 serve_bulk ({REC_BULK:,} rows, one call): {ms:.1f} ms "
+            f"({REC_BULK / ms * 1e3:,.0f} rows/s); peak device memory {_peak_gb(device):.2f} GB")
+        # retrieval_cand: one user's features, the candidate id in field 0
+        dense1, ids1 = dlrm_batch(1)
+
+        def dlrm_chunk(lo, hi):
+            sp = ids1.expand(hi - lo, -1).clone()
+            sp[:, 0] = torch.arange(lo, hi, device=device, dtype=sp.dtype)
+            return R.dlrm_forward(p, rc, dense1.expand(hi - lo, -1), sp)
+
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        vals, top = _cand_sweep(dlrm_chunk, REC_CANDS, DLRM_CHUNK)
+        top = top.cpu()
+        ms = (time.perf_counter() - t0) * 1e3
+        sp = ids1.cpu().expand(K, -1).clone()
+        sp[:, 0] = top.to(sp.dtype)
+        _held_to_cpu(f"dlrm-rm2 retrieval_cand top {K}", vals, R.dlrm_forward(p_cpu, rc, dense1.cpu().expand(K, -1), sp),
+                     REC_CPU_RTOL)
+        log(f"recsys: dlrm-rm2 retrieval_cand, 1 user x {REC_CANDS:,} candidates in chunks of {DLRM_CHUNK}: "
+            f"{ms:.1f} ms; top {K} ids {top.tolist()}")
+    del p, p_cpu, dense, ids, out
+    torch.cuda.empty_cache()
+
+    # ---- din
+    rc = get_arch("din").recsys
+    torch.cuda.reset_peak_memory_stats(device)
+    p = R.init_din(rc, torch.Generator(device=device).manual_seed(REC_SEED + 1), device=device)
+    log(f"recsys: din {rc.vocab_sizes} rows padded to {p.tables.table.shape[0]:,} x {rc.embed_dim}: "
+        f"{_table_gb(p.tables):.3f} GB of tables; history {rc.hist_len}; attention MLP "
+        f"{(p.attn[0].shape[0],) + rc.attn_mlp + (1,)}, top MLP {(p.top[0].shape[0],) + rc.top_mlp}")
+    check(tuple(p.tables.table.shape) == (11_010_048, 18) and p.attn[0].shape[0] == 216, "din at full width")
+    vocab = np.asarray(rc.vocab_sizes)
+
+    def din_batch(n):
+        target = rng.integers(0, vocab, (n, rc.n_sparse)).astype(np.int32)
+        hist = rng.integers(0, vocab, (n, rc.hist_len, rc.n_sparse)).astype(np.int32)
+        mask = np.arange(rc.hist_len)[None, :] < rng.integers(1, rc.hist_len + 1, n)[:, None]
+        return [torch.from_numpy(a).to(device) for a in (target, hist, mask)]
+
+    def din_chunked(t, h, m, chunk):
+        return torch.cat([R.din_forward(p, rc, t[lo: lo + chunk], h[lo: lo + chunk], m[lo: lo + chunk])
+                          for lo in range(0, t.shape[0], chunk)])
+
+    p_cpu = tree_map(lambda x: x.cpu(), p)
+    with torch.no_grad():
+        t, h, m = din_batch(REC_P99)
+        out = R.din_forward(p, rc, t, h, m)
+        check(tuple(out.shape) == (REC_P99,), "din serve_p99 logits [512]")
+        _held_to_cpu("din serve_p99", out[:REC_CPU_ROWS],
+                     R.din_forward(p_cpu, rc, *(a[:REC_CPU_ROWS].cpu() for a in (t, h, m))), REC_CPU_RTOL)
+        ms = _wall_ms(lambda: R.din_forward(p, rc, t, h, m))
+        log(f"recsys: din serve_p99 ({REC_P99} rows): median {ms:.3f} ms ({REC_P99 / ms * 1e3:,.0f} rows/s); "
+            f"peak device memory {_peak_gb(device):.2f} GB")
+        profile_call(f"din serve_p99 ({REC_P99} rows)", lambda: R.din_forward(p, rc, t, h, m).cpu())
+        t, h, m = din_batch(REC_BULK)
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        out = din_chunked(t, h, m, DIN_BULK_CHUNK)
+        torch.cuda.synchronize(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        check(tuple(out.shape) == (REC_BULK,) and bool(torch.isfinite(out).all()), "din serve_bulk logits")
+        _held_to_cpu("din serve_bulk (its last rows)", out[-REC_CPU_ROWS:],
+                     R.din_forward(p_cpu, rc, *(a[-REC_CPU_ROWS:].cpu() for a in (t, h, m))), REC_CPU_RTOL)
+        log(f"recsys: din serve_bulk ({REC_BULK:,} rows in chunks of {DIN_BULK_CHUNK:,}): {ms:.1f} ms "
+            f"({REC_BULK / ms * 1e3:,.0f} rows/s); peak device memory {_peak_gb(device):.2f} GB")
+        # retrieval_cand: one user's history, REC_CANDS candidate items
+        _, h1, m1 = din_batch(1)
+        cand = torch.from_numpy(rng.integers(0, vocab, (REC_CANDS, rc.n_sparse)).astype(np.int32)).to(device)
+
+        def din_chunk(lo, hi):
+            return R.din_forward(p, rc, cand[lo:hi], h1.expand(hi - lo, -1, -1), m1.expand(hi - lo, -1))
+
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        vals, top = _cand_sweep(din_chunk, REC_CANDS, DIN_CHUNK)
+        top = top.cpu()
+        ms = (time.perf_counter() - t0) * 1e3
+        _held_to_cpu(f"din retrieval_cand top {K}", vals,
+                     R.din_forward(p_cpu, rc, cand.cpu()[top], h1.cpu().expand(K, -1, -1), m1.cpu().expand(K, -1)),
+                     REC_CPU_RTOL)
+        log(f"recsys: din retrieval_cand, 1 user x {REC_CANDS:,} candidates in chunks of {DIN_CHUNK}: {ms:.1f} ms")
+    del p, p_cpu, t, h, m, out, cand
+    torch.cuda.empty_cache()
+
+
+def mind_phase(device, core_ops, sites):
+    """mind at full width: serve_p99's interests (timed, held to the CPU
+    port); REC_CANDS candidate items (distinct item ids, Zipf categories)
+    through ``mind_item_embedding`` on the card into a dense LSP index; 64
+    users' 256 interest rows through ``retrieve_dense`` in four calls of 64
+    (dequant_matmul counted) against impl="ref" (recall@10 >= 0.99) and the
+    exhaustive oracle; each user's four exact per-interest top-Ks merged by
+    score against the top K of ``mind_score_candidates`` over every
+    candidate. Returns (dequant_matmul launches, its captured calls)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.common.tree_utils import tree_map
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.config import DynamicParams, StaticConfig, combine
+    from repro_torch.core.lsp_dense import DenseIndexConfig, build_dense_index, retrieve_dense, retrieve_dense_exact
+    from repro_torch.eval.metrics import recall_vs_oracle
+    from repro_torch.models import recsys as R
+
+    rng = np.random.default_rng(REC_SEED + 2)
+    rc = get_arch("mind").recsys
+    torch.cuda.reset_peak_memory_stats(device)
+    p = R.init_mind(rc, torch.Generator(device=device).manual_seed(REC_SEED + 2), device=device)
+    log(f"recsys: mind {rc.vocab_sizes} rows padded to {p.tables.table.shape[0]:,} x {rc.embed_dim}: "
+        f"{_table_gb(p.tables):.3f} GB of tables; {rc.n_interests} interests, {rc.capsule_iters} capsule "
+        f"iterations, history {rc.hist_len}")
+    check(tuple(p.tables.table.shape) == (10_100_224, 64), "mind at full width")
+
+    def histories(n):
+        items = rng.integers(0, rc.vocab_sizes[0], (n, rc.hist_len))
+        cats = (rng.zipf(MIND_ZIPF, (n, rc.hist_len)) - 1) % rc.vocab_sizes[1]
+        mask = np.arange(rc.hist_len)[None, :] < rng.integers(5, rc.hist_len + 1, n)[:, None]
+        return (torch.from_numpy(np.stack([items, cats], -1).astype(np.int32)).to(device),
+                torch.from_numpy(mask).to(device))
+
+    with torch.no_grad():
+        h, m = histories(REC_P99)
+        out = R.mind_interests(p, rc, h, m)
+        check(tuple(out.shape) == (REC_P99, rc.n_interests, rc.embed_dim), "mind serve_p99 interests [512, 4, 64]")
+        p_cpu = tree_map(lambda x: x.cpu(), p)
+        _held_to_cpu("mind serve_p99 interests", out[:REC_CPU_ROWS],
+                     R.mind_interests(p_cpu, rc, h[:REC_CPU_ROWS].cpu(), m[:REC_CPU_ROWS].cpu()), REC_CPU_RTOL)
+        del p_cpu
+        ms = _wall_ms(lambda: R.mind_interests(p, rc, h, m))
+        log(f"recsys: mind serve_p99 ({REC_P99} users' interests): median {ms:.3f} ms")
+
+        items = rng.choice(rc.vocab_sizes[0], REC_CANDS, replace=False)
+        cats = (rng.zipf(MIND_ZIPF, REC_CANDS) - 1) % rc.vocab_sizes[1]
+        cand_ids = torch.from_numpy(np.stack([items, cats], 1).astype(np.int32)).to(device)
+        t0 = time.perf_counter()
+        cands = R.mind_item_embedding(p, rc, cand_ids)
+        torch.cuda.synchronize(device)
+        log(f"recsys: mind item tower over {REC_CANDS:,} candidates ({len(np.unique(cats)):,} categories, Zipf "
+            f"{MIND_ZIPF}) in {(time.perf_counter() - t0) * 1e3:.1f} ms")
+        hist, mask = histories(MIND_USERS)
+        interests = R.mind_interests(p, rc, hist, mask)  # [64, 4, 64]
+    t0 = time.perf_counter()
+    didx = build_dense_index(cands, DenseIndexConfig(b=64, c=16, bits=4, kmeans_iters=4, ns_align=8), device=device)
+    torch.cuda.synchronize(device)
+    log(f"recsys: mind's dense index of {REC_CANDS:,} x {rc.embed_dim} built on the card in "
+        f"{time.perf_counter() - t0:.1f} s: {didx.n_blocks} blocks, {didx.n_superblocks} superblocks; "
+        f"{int(mask.sum())} of {mask.numel()} history slots live")
+    rows = interests.reshape(-1, rc.embed_dim)
+    check(rows.shape[0] == N_INTEREST_ROWS, f"{N_INTEREST_ROWS} interest rows")
+    calls = [rows[i: i + BATCH] for i in range(0, N_INTEREST_ROWS, BATCH)]
+    cfg = combine(StaticConfig(variant="lsp0", gamma=max(8, didx.n_superblocks // 8), gamma0=4, k_max=K),
+                  DynamicParams(k=K))
+
+    def run(impl):
+        return np.concatenate([retrieve_dense(didx, q, cfg, impl=impl)[0].cpu().numpy() for q in calls])
+
+    captured = capture(core_ops, ["dequant_matmul"], lambda: retrieve_dense(didx, calls[0], cfg))
+    ids, launches, _ = counted(core_ops, lambda: run("auto"), sites)
+    log(f"recsys: mind, launches during the 4 retrieve_dense calls: {launches}")
+    check(launches["dequant_matmul"] > 0, "kernel dequant_matmul was never launched on mind's path")
+    check(ids.shape == (N_INTEREST_ROWS, K) and ((ids >= 0) & (ids < REC_CANDS)).all(),
+          "every mind interest row returns k valid candidate ids")
+    rec_ref = recall_vs_oracle(ids, run("ref"))
+    exact = [retrieve_dense_exact(didx, q, K) for q in calls]
+    ex_ids = torch.cat([e[0] for e in exact]).cpu()
+    ex_vals = torch.cat([e[1] for e in exact]).cpu()
+    log(f"recsys: mind kernel path vs impl='ref': recall@10 {rec_ref:.4f}; recall@10 vs exhaustive "
+        f"{recall_vs_oracle(ids, ex_ids.numpy()):.4f} (untrained weights: no threshold)")
+    check(rec_ref >= 0.99, f"recall@10 of mind's kernel path against the ref path {rec_ref} < 0.99")
+
+    # each user's four per-interest exact top-Ks, merged by score, against mind_score_candidates
+    # over the candidates as the index holds them (bfloat16)
+    with torch.no_grad():
+        full = R.mind_score_candidates(interests, cands.to(torch.bfloat16).to(torch.float32))
+        top_vals, top_ids = (t.cpu() for t in torch.topk(full, K, dim=1))
+    del full
+    ties = 0
+    for u in range(MIND_USERS):
+        best = {}
+        for i, v in zip(ex_ids[u * rc.n_interests: (u + 1) * rc.n_interests].reshape(-1).tolist(),
+                        ex_vals[u * rc.n_interests: (u + 1) * rc.n_interests].reshape(-1).tolist()):
+            best[i] = max(v, best.get(i, -np.inf))
+        merged = sorted(best.items(), key=lambda kv: (-kv[1], kv[0]))[:K]
+        tol = MERGE_RTOL * float(top_vals[u].abs().max())
+        for j, (i, v) in enumerate(merged):
+            check(abs(v - float(top_vals[u, j])) <= tol, f"mind user {u} rank {j}: merged score {v} against "
+                                                         f"mind_score_candidates' {float(top_vals[u, j])}")
+            if i != int(top_ids[u, j]):
+                ties += 1
+    log(f"recsys: mind, each user's {rc.n_interests} exact per-interest top {K}s merged by score equal "
+        f"mind_score_candidates' top {K} over all {REC_CANDS:,} for all {MIND_USERS} users (scores within "
+        f"{MERGE_RTOL} x max; {ties} positions differ in id at equal score)")
+    call_ms = [host_ms(lambda: retrieve_dense(didx, q, cfg)[0].cpu()) for _ in range(3) for q in calls]
+    ref_ms = [host_ms(lambda: retrieve_dense(didx, q, cfg, impl="ref")[0].cpu()) for q in calls]
+    exact_ms = [host_ms(lambda: retrieve_dense_exact(didx, q, K)[0].cpu()) for q in calls]
+    log(f"recsys: mind retrieve_dense of {BATCH} rows: median {statistics.median(call_ms):.2f} ms over "
+        f"{len(call_ms)} calls (kernel path); impl='ref' median {statistics.median(ref_ms):.2f} ms; exhaustive "
+        f"median {statistics.median(exact_ms):.2f} ms; peak device memory {_peak_gb(device):.2f} GB")
+    profile_call(f"mind retrieve_dense ({BATCH} rows)", lambda: retrieve_dense(didx, calls[0], cfg)[0].cpu())
+    del p, didx, cands, interests
+    torch.cuda.empty_cache()
+    return launches["dequant_matmul"], captured["dequant_matmul"]
+
+
+def gnn_phase(device):
+    """schnet at full width (3 interactions, 64 hidden, 300 RBFs, cutoff 10)
+    through the three GNN shapes that fit one card, each held to the CPU port
+    in float32: ``molecule_batch_forward`` over the molecule shape (timed,
+    profiled); ``schnet_forward`` + ``schnet_readout`` over full_graph_sm
+    (``make_random_graph``) and over minibatch_lg's sampled subgraph (parent
+    graph with Reddit's nodes and GNN_PARENT_EDGES edges)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.common.tree_utils import tree_map
+    from repro_torch.configs.base import GNN_SHAPES, get_arch
+    from repro_torch.data.graph import SampledSubgraph, make_random_graph, sample_subgraph
+    from repro_torch.models import schnet as S
+
+    cfg = get_arch("schnet").gnn
+    rng = np.random.default_rng(GNN_SEED)
+    t_phase = time.perf_counter()
+
+    def init(in_dim, out_dim, seed):
+        p = S.init_schnet(cfg, in_dim, out_dim, torch.Generator(device=device).manual_seed(seed), device=device)
+        return p, tree_map(lambda x: x.cpu(), p)
+
+    # ---- molecule: 128 graphs x 30 atoms x 64 edges, 16 atom types, an energy each
+    shp = GNN_SHAPES["molecule"]
+    b, n, e = shp.batch, shp.n_nodes, shp.n_edges
+    p, p_cpu = init(16, 1, GNN_SEED)
+    n_live = rng.integers(e // 2, e + 1, b)
+    host = (np.eye(16, dtype=np.float32)[rng.integers(0, 16, (b, n))],
+            (rng.standard_normal((b, n, 3)) * 1.5).astype(np.float32),
+            rng.integers(0, n, (b, e)).astype(np.int32), rng.integers(0, n, (b, e)).astype(np.int32),
+            np.arange(e)[None, :] < n_live[:, None])
+    args = [torch.from_numpy(a).to(device) for a in host]
+    torch.cuda.reset_peak_memory_stats(device)
+    with torch.no_grad():
+        out = S.molecule_batch_forward(p, cfg, *args)
+        _held_to_cpu(f"schnet molecule ({b} x {n} atoms x {e} edges) energies", out,
+                     S.molecule_batch_forward(p_cpu, cfg, *(torch.from_numpy(a) for a in host)), GNN_CPU_RTOL)
+        ms = _wall_ms(lambda: S.molecule_batch_forward(p, cfg, *args))
+        log(f"gnn: schnet molecule_batch_forward ({b} graphs): median {ms:.3f} ms ({b / ms * 1e3:,.0f} graphs/s); "
+            f"peak device memory {_peak_gb(device):.2f} GB")
+        profile_call(f"schnet molecule_batch_forward ({b} graphs)",
+                     lambda: S.molecule_batch_forward(p, cfg, *args).cpu())
+
+    def node_level(label, x, es, ed, ew, em, n_out, seed, rows=None):
+        p, p_cpu = init(x.shape[1], n_out, seed)
+        host = (x, es, ed, ew) + (() if em is None else (em,))
+        dev = [torch.from_numpy(a).to(device) for a in host]
+        torch.cuda.reset_peak_memory_stats(device)
+        with torch.no_grad():
+            got = S.schnet_readout(p, S.schnet_forward(p, cfg, *dev))[:rows]
+            want = S.schnet_readout(p_cpu, S.schnet_forward(p_cpu, cfg, *(torch.from_numpy(a) for a in host)))[:rows]
+            _held_to_cpu(f"schnet {label} logits", got, want, GNN_CPU_RTOL)
+            ms = _wall_ms(lambda: S.schnet_readout(p, S.schnet_forward(p, cfg, *dev)))
+        log(f"gnn: schnet {label} ({x.shape[0]:,} nodes, {len(es):,} edges, {x.shape[1]} features): forward + "
+            f"readout median {ms:.3f} ms; peak device memory {_peak_gb(device):.2f} GB")
+
+    # ---- full_graph_sm: 2,708 nodes, 10,556 edges, 1,433 features, 16 classes
+    shp = GNN_SHAPES["full_graph_sm"]
+    g = make_random_graph(shp.n_nodes, shp.n_edges, shp.d_feat, 16, seed=GNN_SEED)
+    src = np.repeat(np.arange(shp.n_nodes), np.diff(g.indptr)).astype(np.int32)
+    ew = (rng.random(shp.n_edges) * 5.0).astype(np.float32)  # pseudo-distances, as sample_subgraph draws them
+    node_level("full_graph_sm", g.feats, src, g.indices, ew, None, 16, GNN_SEED + 1)
+
+    # ---- minibatch_lg: 1,024 seeds, fanout (15, 10) from a graph of Reddit's 232,965 nodes
+    shp = GNN_SHAPES["minibatch_lg"]
+    t0 = time.perf_counter()
+    g = make_random_graph(shp.n_nodes, GNN_PARENT_EDGES, 100, 16, seed=GNN_SEED + 2)
+    sub = sample_subgraph(g, rng.choice(shp.n_nodes, shp.batch_nodes, replace=False), shp.fanout, rng)
+    want = SampledSubgraph.shapes(shp.batch_nodes, shp.fanout, 100)
+    check(sub.node_feats.shape == want["node_feats"] == (169_984, 100) and sub.edge_src.shape == (168_960,),
+          "minibatch_lg subgraph shapes")
+    log(f"gnn: minibatch_lg parent graph {shp.n_nodes:,} nodes x {GNN_PARENT_EDGES:,} edges (Reddit's "
+        f"{shp.n_edges:,} cut) and its subgraph on the host in {time.perf_counter() - t0:.1f} s")
+    node_level("minibatch_lg subgraph", sub.node_feats, sub.edge_src, sub.edge_dst, sub.edge_w, sub.edge_mask, 16,
+               GNN_SEED + 3, rows=shp.batch_nodes)
+    del p, args, g, sub
+    torch.cuda.empty_cache()
+    log(f"gnn phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def lm_rel_err(got, want):
     """Largest absolute error over the largest |reference| (float64 on the card)."""
     got, want = got.double(), want.double()
@@ -2622,6 +3044,16 @@ def smoke(device) -> int:
     sharded_calls["dequant_matmul"] = dense_sharded_calls
     torch.cuda.empty_cache()
 
+    # ---- 7f'. the recsys models at full width: dlrm-rm2 and din serving, mind's retrieval (dequant_matmul)
+    t0 = time.perf_counter()
+    dlrm_din_serving(device)
+    mind_launches, mind_calls = mind_phase(device, core_ops, sites)
+    torch.cuda.empty_cache()
+    log(f"recsys phase {time.perf_counter() - t0:.1f} s")
+
+    # ---- 7f''. schnet at full width: molecules, full_graph_sm, minibatch_lg
+    gnn_phase(device)
+
     # ---- 7g. the SPLADE encoder: train, checkpoint, encode, index the learned vectors, retrieve
     encoder_launches, encoder_calls = encoder_phase(device, core_ops, sites)
     torch.cuda.empty_cache()
@@ -2672,6 +3104,8 @@ def smoke(device) -> int:
     for key in ("sbmax", "boundsum_gather", "doc_score_fwd"):
         groups.append((key, "phase 1" if key == "sbmax" else None, encoder_calls[key], encoder_launches[key],
                        "encoder"))
+    # and of mind's retrieval (its interests, the dense index of its item tower), launches counted there
+    groups.append(("dequant_matmul", None, mind_calls, mind_launches, "mind"))
     # and of the serving launcher's second start (the engine's batches of up to 8), launches counted there
     for key in ("sbmax", "boundsum_gather", "doc_score_fwd"):
         check(launcher_calls[key], f"no captured call of {key} on the serving launcher's path")

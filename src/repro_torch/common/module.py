@@ -1,4 +1,5 @@
-"""Initialisers and the elementwise building blocks of the models.
+"""Initialisers, the elementwise building blocks of the models, and JAX's
+rule for a gather whose index is out of range (``take_rows``).
 
 Conventions across ``repro_torch.models``: parameters are NamedTuples of tensors
 (the JAX package's pytrees, field for field), weights keep its ``[in, out]``
@@ -37,6 +38,19 @@ def dense_init(in_dim: int, out_dim: int, generator=None, dtype=torch.float32, d
 def embed_init(vocab: int, dim: int, generator=None, dtype=torch.float32, device=None,
                std: float = 0.02) -> torch.Tensor:
     return _trunc_normal((vocab, dim), std, generator, dtype, device)
+
+
+def jax_rows(rows: torch.Tensor, n: int) -> torch.Tensor:
+    """The rows that JAX's ``x[rows]`` reads from ``n`` rows, where no index
+    raises: a negative row wraps once, then every row is clamped into
+    ``[0, n-1]`` (int64)."""
+    rows = rows.long()
+    return torch.where(rows < 0, rows + n, rows).clamp(0, n - 1)
+
+
+def take_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``table[rows]`` by JAX's out-of-range rule (``jax_rows``)."""
+    return table[jax_rows(rows, table.shape[0])]
 
 
 def zeros(shape, dtype=torch.float32, device=None) -> torch.Tensor:
