@@ -83,7 +83,21 @@ ms, tokens/s, peak GB, the profiler's kernels a decode step and idle share);
 gemma3-27b cut to 6 layers, a 2 x 1,536 prefill wrapping and rolling the
 ring buffer of its 1,024-token windows, against the forward; phi3.5-moe cut
 to 2 layers against the CPU port with its dropped choices counted, then bf16
-serving; holds each kernel against its plain version again at the shapes
+serving; trains qwen3-4b through the launcher's ``--arch`` job; runs the
+distributed training layer in 4 spawned gloo ranks sharing the card:
+qwen3-4b at full width and depth with its Adafactor moments, each leaf drawn
+from its own seed and cut to the rank's shard by ``stacked_lm_param_specs``
+and ``adafactor_state_specs`` on mesh (data 2, model 2), ``reshard_state``
+to (data 1, model 4) against the redrawn leaves, a sample gathered on rank
+0, a checkpoint of its 2-layer cut saved from the first mesh and
+``restore_checkpoint(shardings=)`` onto the second; dlrm-rm2's 6.656 GB
+table row-sharded over model = 4 through both vocab-parallel lookups at 512
+and 16,384 rows (outputs to the bit against ``field_lookup``, zeros for
+out-of-range ids, each shard's gradient against the whole table's); 20
+data-parallel steps of the SPLADE encoder through ``compressed_psum``
+against the uncompressed mean (within a quantization level, the
+error-feedback identity), its step times fed to ``BackupStepPolicy``; holds
+each kernel against its plain version again at the shapes
 its path gave it and times both with CUDA events (median of 20, L2 flushed):
 sbmax at each of its call sites (phase 1, SBavg, bmp's BoundSum; a row each,
 with a ``zero_()`` of its output as the floor), doc_score_fwd and doc_score_flat at the block ids and mask of round 0
@@ -204,6 +218,20 @@ MERGE_RTOL = 1e-5  # the per-interest merge against mind_score_candidates: two f
 # (host generation; the sampled subgraph's shapes do not depend on the edge count)
 GNN_SEED, GNN_PARENT_EDGES = 0, 11_461_589
 GNN_CPU_RTOL = 1e-4  # card against CPU in float32; the card's segment sums use atomics
+# distributed phase: 4 gloo ranks on the one card. qwen3-4b at full width and depth placed by
+# stacked_lm_param_specs(fsdp=True, kv_shard=False) + adafactor_state_specs on (data 2, model 2),
+# resharded to (data 1, model 4), a checkpoint of its DIST_CKPT_LAYERS-layer cut saved from the
+# first mesh and restored onto the second; dlrm-rm2's stacked table row-sharded over model = 4
+# through both vocab-parallel lookups (serve_p99's 512 rows, one 16,384-row serve_bulk chunk);
+# compressed_psum over data = 4 on the SPLADE encoder's gradients, a quarter of a --splade batch of
+# 64 a rank, for DIST_CP_STEPS steps
+DIST_WORLD, DIST_SEED, DIST_CKPT_LAYERS, DIST_CP_STEPS = 4, 0, 2, 20
+DIST_MESH_A, DIST_MESH_B = ((2, 2), ("data", "model")), ((1, 4), ("data", "model"))
+DIST_GATHERED = ("params/embed", "params/groups/0/attn/wk", "params/final_norm", "moments/groups/0/attn/wq/vr")
+DIST_LOOKUP_BATCHES = {"serve_p99": 512, "serve_bulk chunk": 16_384}
+DIST_ROW_CHUNK = 1 << 20  # table rows drawn per seeded chunk, so a rank draws only its own rows
+DIST_GRAD_RTOL = 1e-6
+DIST_REPS = 5
 # name -> (core.ops attribute, CUDA source, the TPU kernel it replaces)
 KERNELS = {
     "sbmax": ("sbmax_kernel", "src/repro_torch/csrc/sbmax.cu", "src/repro/kernels/sbmax/kernel.py:51"),
@@ -2872,6 +2900,498 @@ def lm_train_phase(device):
     log(f"lm training phase {time.perf_counter() - t_phase:.1f} s")
 
 
+def _draw(shape, seed, device, positive=False):
+    """A leaf drawn whole from a CUDA generator seeded with ``seed``:
+    any rank can draw any leaf again and get the same bits."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if positive:
+        return torch.rand(shape, generator=gen, device=device)
+    return torch.randn(shape, generator=gen, device=device).mul_(0.02)
+
+
+def _dist_state(cfg, mesh, device, seed0):
+    """qwen3's stacked params and Adafactor moments, each leaf drawn whole on
+    this rank from its own seed and cut to this rank's shard under the
+    rules' placement on ``mesh`` (tests/test_torch_distributed.py holds the
+    index maps at qwen3-4b's full shapes against JAX's). Returns (meta state,
+    shards, placements, this rank's bytes, the whole's bytes, seconds by
+    stage)."""
+    import torch
+
+    from repro_torch.common.tree_utils import flatten_with_paths, tree_map
+    from repro_torch.models import stacked
+    from repro_torch.optim.adafactor import Adafactor
+
+    params = stacked.init_lm_stacked(cfg, device="meta")
+    meta = {"params": params, "moments": Adafactor().init(params).moments}
+    placements = _dist_placements(meta, mesh)
+    flat_p = flatten_with_paths(placements)
+    local, local_bytes, whole_bytes, stage_s = [], 0, 0, {"draw": 0.0, "shard": 0.0}
+
+    def timed(stage, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize(device)
+        stage_s[stage] += time.perf_counter() - t0
+        return r
+
+    for i, (path, leaf) in enumerate(flatten_with_paths(meta).items()):
+        full = timed("draw", lambda: _draw(leaf.shape, seed0 + i, device, positive=path.startswith("moments")))
+        piece = timed("shard", lambda: flat_p[path].shard(full))
+        local.append(piece)
+        local_bytes += piece.numel() * piece.element_size()
+        whole_bytes += full.numel() * full.element_size()
+        del full
+    it = iter(local)
+    return meta, tree_map(lambda _: next(it), meta), placements, local_bytes, whole_bytes, stage_s
+
+
+def _dist_placements(meta, mesh):
+    from repro_torch.common.tree_utils import tree_map
+    from repro_torch.distributed.sharding import NamedSharding, adafactor_state_specs, stacked_lm_param_specs
+
+    specs = stacked_lm_param_specs(meta["params"], mesh, fsdp=True, kv_shard=False)
+    specs = {"params": specs, "moments": adafactor_state_specs(specs)}
+    return tree_map(lambda s: NamedSharding(mesh, s), specs)
+
+
+def _dist_equal_redrawn(meta, shards, placements, device, seed0, what):
+    """Every shard equal to its slice of the leaf drawn again from its seed."""
+    import torch
+
+    from repro_torch.common.tree_utils import flatten_with_paths
+
+    flat_s, flat_p = flatten_with_paths(shards), flatten_with_paths(placements)
+    for i, (path, leaf) in enumerate(flatten_with_paths(meta).items()):
+        full = _draw(leaf.shape, seed0 + i, device, positive=path.startswith("moments"))
+        check(torch.equal(flat_s[path], flat_p[path].local_slice(full)), f"{what}: {path} differs from its slice")
+        del full
+    return len(flat_s)
+
+
+def _dist_lm(device, ckpt_dir, report):
+    """qwen3-4b placed on (data 2, model 2), resharded to (data 1, model 4),
+    a sample gathered on rank 0; its cut checkpointed from the first mesh and
+    restored onto the second."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.ckpt.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.common.tree_utils import flatten_with_paths, tree_map
+    from repro_torch.configs.base import get_arch
+    from repro_torch.distributed.sharding import gather_tree
+    from repro_torch.launch.mesh import DeviceMesh, make_host_mesh
+    from repro_torch.train.elastic import reshard_state
+
+    cfg = get_arch("qwen3-4b").lm
+    mesh_a = make_host_mesh(model=DIST_MESH_A[0][1], device=device)
+    mesh_b = DeviceMesh(*DIST_MESH_B, device=device)
+    out = {}
+    t0 = time.perf_counter()
+    meta, on_a, place_a, out["rank_bytes"], out["whole_bytes"], out["place_stages"] = _dist_state(
+        cfg, mesh_a, device, DIST_SEED)
+    out["n_params"] = sum(x.numel() for x in flatten_with_paths(meta["params"]).values())
+    torch.cuda.synchronize(device)
+    out["place_s"] = time.perf_counter() - t0
+    out["reserved_gb"] = torch.cuda.max_memory_reserved(device) / 1e9
+    out["rank_param_bytes"] = sum(x.numel() * x.element_size() for x in flatten_with_paths(on_a["params"]).values())
+    report("placed")
+
+    place_b = _dist_placements(meta, mesh_b)
+    dist.barrier()
+    t0 = time.perf_counter()
+    on_b = reshard_state(on_a, place_b, place_a)
+    torch.cuda.synchronize(device)
+    dist.barrier()
+    out["reshard_s"] = time.perf_counter() - t0
+    del on_a
+    out["resharded_leaves"] = _dist_equal_redrawn(meta, on_b, place_b, device, DIST_SEED, "resharded")
+    flat_b, flat_pb = flatten_with_paths(on_b), flatten_with_paths(place_b)
+    seeds = {path: DIST_SEED + i for i, path in enumerate(flatten_with_paths(meta))}
+    t0, out["gathered_bytes"] = time.perf_counter(), 0
+    for path in DIST_GATHERED:
+        whole = flat_pb[path].gather(flat_b[path], dst=0)
+        if dist.get_rank() == 0:
+            want = _draw(whole.shape, seeds[path], device, positive=path.startswith("moments"))
+            check(torch.equal(whole, want), f"gathered {path} differs from the drawn leaf")
+            out["gathered_bytes"] += whole.numel() * whole.element_size()
+        del whole
+    out["gather_s"] = time.perf_counter() - t0
+    del on_b, flat_b
+    torch.cuda.empty_cache()
+    report("resharded")
+
+    # the checkpoint, at a depth cut: saved by rank 0 from the shards on mesh A, restored onto mesh B
+    cut = dataclasses.replace(cfg, n_layers=min(cfg.n_layers, DIST_CKPT_LAYERS))
+    seed_cut = DIST_SEED + 100_000
+    meta_c, cut_a, place_ca, _, out["ckpt_whole_bytes"], _ = _dist_state(cut, mesh_a, device, seed_cut)
+    place_cb = _dist_placements(meta_c, mesh_b)
+    dist.barrier()
+    t0 = time.perf_counter()
+    whole = gather_tree(cut_a, place_ca, dst=0)
+    torch.cuda.synchronize(device)
+    out["ckpt_gather_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if dist.get_rank() == 0:
+        save_checkpoint(ckpt_dir, 1, whole)
+    del whole
+    dist.barrier()
+    out["save_s"] = time.perf_counter() - t0
+    del cut_a
+    t0 = time.perf_counter()
+    restored, step = restore_checkpoint(ckpt_dir, meta_c, shardings=place_cb)
+    torch.cuda.synchronize(device)
+    out["restore_s"] = time.perf_counter() - t0
+    check(step == 1, f"restored step {step}")
+    out["restored_leaves"] = _dist_equal_redrawn(meta_c, restored, place_cb, device, seed_cut, "restored")
+    out["ckpt_layers"] = cut.n_layers
+    del restored
+    torch.cuda.empty_cache()
+    report("checkpoint")
+    return out
+
+
+def _table_rows(lo, hi, dim, device, seed):
+    """Rows [lo, hi) of the stacked table, drawn in seeded chunks of
+    DIST_ROW_CHUNK rows (recsys.init_tables' scale, 1 / sqrt(D))."""
+    import torch
+
+    out = torch.empty((hi - lo, dim), device=device)
+    for c in range(lo // DIST_ROW_CHUNK, -(-hi // DIST_ROW_CHUNK)):
+        c_lo = c * DIST_ROW_CHUNK
+        chunk = _draw((DIST_ROW_CHUNK, dim), seed + c, device).mul_(50.0 / dim ** 0.5)  # _draw scales by 0.02
+        a, b = max(lo, c_lo), min(hi, c_lo + DIST_ROW_CHUNK)
+        out[a - lo: b - lo] = chunk[a - c_lo: b - c_lo]
+    return out
+
+
+def _bcast(t, device):
+    """Rank 0's tensor on every rank (through host memory: gloo)."""
+    import torch.distributed as dist
+
+    host = t.cpu().contiguous()
+    dist.broadcast(host, src=0)
+    return host.to(device)
+
+
+def _dist_lookup(device, report):
+    """dlrm-rm2's stacked table row-sharded over model = 4, through both
+    vocab-parallel lookups at serve_p99 and one serve_bulk chunk: outputs to
+    the bit against field_lookup over the whole table (rank 0), zeros for a
+    row of out-of-range ids, each shard's gradient against the whole table's."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.distributed.embedding import vocab_parallel_lookup, vocab_parallel_lookup_scattered
+    from repro_torch.launch.mesh import DeviceMesh, batch_axes
+    from repro_torch.models.recsys import EmbedTables, field_lookup
+
+    rc = get_arch("dlrm-rm2").recsys
+    rows_total = -(-int(sum(rc.vocab_sizes)) // 512) * 512  # init_tables' padding
+    mesh = DeviceMesh(*DIST_MESH_B, device=device)
+    rank, n_model = dist.get_rank(), mesh.shape["model"]
+    r_local = rows_total // n_model
+    lo = mesh.index("model") * r_local
+    seed = DIST_SEED + 200_000
+    table_l = _table_rows(lo, lo + r_local, rc.embed_dim, device, seed).requires_grad_()  # this rank's shard
+    # rank 0: the whole table on the card (the outputs' reference, field_lookup's time) and on the host (the
+    # gradients' reference: a dense 6.656 GB gradient beside what the script's earlier phases hold would not fit)
+    whole = _table_rows(0, rows_total, rc.embed_dim, device, seed) if rank == 0 else None
+    whole_host = whole.cpu() if rank == 0 else None
+    offsets = np.cumsum([0] + list(rc.vocab_sizes[:-1]))
+    n_f = len(rc.vocab_sizes)
+    out = {"rows": rows_total, "dim": rc.embed_dim, "fields": n_f,
+           "table_gb": rows_total * rc.embed_dim * 4 / 1e9, "shard_gb": r_local * rc.embed_dim * 4 / 1e9}
+    rng = np.random.default_rng(DIST_SEED)
+    for label, n in DIST_LOOKUP_BATCHES.items():
+        fids = np.stack([rng.integers(0, v, n) for v in rc.vocab_sizes], axis=1)
+        gids = torch.from_numpy(fids + offsets[None, :])
+        gids[-1] = torch.tensor([-3 if f % 2 else rows_total + 11 for f in range(n_f)])  # no shard owns these
+        w = _draw((n, n_f, rc.embed_dim), seed + 999, device) * 50.0
+        ref_out = ref_rows = tol_rows = uniq = None
+        if rank == 0:  # field_lookup over the whole table, and its gradient, on the in-range rows
+            offs = torch.from_numpy(offsets)
+            ref = field_lookup(EmbedTables(whole, offs.to(device)), torch.from_numpy(fids[:-1]).to(device))
+            ref_out = torch.cat([ref, torch.zeros_like(ref[:1])])
+            whole_host.requires_grad_()
+            w_host = w[:-1].cpu()
+            (field_lookup(EmbedTables(whole_host, offs), torch.from_numpy(fids[:-1])) * w_host).sum().backward()
+            uniq, inv, counts = torch.unique(gids[:-1].reshape(-1), return_inverse=True, return_counts=True)
+            ref_rows = whole_host.grad[uniq]
+            abs_sum = torch.zeros((len(uniq), rc.embed_dim)).index_add_(0, inv, w_host.reshape(-1, rc.embed_dim).abs())
+            # a float32 sum of c terms in another order: within (c - 1) 2^-24 of the sum of their |terms|
+            tol_rows = (counts[:, None] - 1).float() * 2.0 ** -24 * abs_sum
+            whole_host.grad = None
+            whole_host.requires_grad_(False)
+            del ref, abs_sum, w_host
+        ref_out = _bcast(ref_out if rank == 0 else torch.empty((n, n_f, rc.embed_dim)), device)
+        n_u = _bcast(torch.tensor([0 if uniq is None else len(uniq)]), "cpu").item()
+        uniq = _bcast(uniq if rank == 0 else torch.empty(n_u, dtype=torch.int64), device)
+        ref_rows = _bcast(ref_rows if rank == 0 else torch.empty((n_u, rc.embed_dim)), device)
+        tol_rows = _bcast(tol_rows if rank == 0 else torch.empty((n_u, rc.embed_dim)), device)
+        mine = (uniq >= lo) & (uniq < lo + r_local)
+        rows = uniq[mine] - lo
+        gids = gids.to(device)
+        for name, fn in (("psum", vocab_parallel_lookup), ("scattered", vocab_parallel_lookup_scattered)):
+            got = fn(table_l, gids, mesh, batch_axes(mesh))
+            part = slice(rank * n // n_model, (rank + 1) * n // n_model) if name == "scattered" else slice(0, n)
+            check(torch.equal(got, ref_out[part]), f"{name} lookup at {label}: not field_lookup's bits")
+            if part.stop == n:
+                check(not got[-1].any(), f"{name} lookup at {label}: out-of-range ids give nonzero rows")
+            (got * w[part]).sum().backward()
+            g, table_l.grad = table_l.grad, None
+            err = (g[rows] - ref_rows[mine]).abs()
+            bound = DIST_GRAD_RTOL * ref_rows[mine].abs() + tol_rows[mine]
+            check(bool((err <= bound).all()), f"{name} at {label}: shard gradient off its slice of the whole's "
+                                              f"(max err {float(err.max()):.3g})")
+            scaled = float((g[rows] - n_model * ref_rows[mine]).abs().max())
+            g.index_fill_(0, rows, 0)
+            check(float(g.amax()) == 0.0 == float(g.amin()), f"{name} at {label}: gradient on rows no id looked up")
+            del got, g
+            fwd_ms, bwd_ms = [], []
+            for _ in range(DIST_REPS):
+                dist.barrier()
+                torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+                y = fn(table_l, gids, mesh, batch_axes(mesh))
+                torch.cuda.synchronize(device)
+                fwd_ms.append((time.perf_counter() - t0) * 1e3)
+                dist.barrier()
+                t0 = time.perf_counter()
+                (y * w[part]).sum().backward()
+                torch.cuda.synchronize(device)
+                bwd_ms.append((time.perf_counter() - t0) * 1e3)
+                table_l.grad = None
+                del y
+            out[f"{name}/{label}"] = dict(ms=statistics.median(fwd_ms), bwd_ms=statistics.median(bwd_ms),
+                                          grad_err=float(err.max()), rows_checked=len(rows), scaled_err=scaled)
+        if rank == 0:
+            ms = []
+            idx = torch.from_numpy(fids).to(device)
+            tab = EmbedTables(whole, torch.from_numpy(offsets).to(device))
+            for _ in range(DIST_REPS):
+                torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+                field_lookup(tab, idx)
+                torch.cuda.synchronize(device)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            out[f"field_lookup/{label}"] = statistics.median(ms)
+    del table_l, whole, whole_host
+    torch.cuda.empty_cache()
+    report("lookup")
+    return out
+
+
+def _dist_compressed(device, report):
+    """DIST_CP_STEPS data-parallel steps of the SPLADE encoder over data = 4:
+    each rank's gradient on its quarter of the --splade batch, the mean
+    through compressed_psum (AdamW applies it), against the uncompressed
+    all-reduce mean: within one quantization level at every step, the
+    residuals within half a level, and the error-feedback identity over the
+    run. BackupStepPolicy tracks the step times."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.common.tree_utils import tree_leaves, tree_map
+    from repro_torch.distributed.topk import all_reduce_sum, pmax_scalar
+    from repro_torch.launch.mesh import DeviceMesh
+    from repro_torch.launch.train import splade_job
+    from repro_torch.models.sparse_encoder import SpladeBatch, splade_loss
+    from repro_torch.optim.grad_compress import compressed_psum, init_error_feedback
+    from repro_torch.train.elastic import BackupStepPolicy
+
+    mesh = DeviceMesh((DIST_WORLD, 1), ("data", "model"), device=device)
+    group, rank = mesh.group("data"), dist.get_rank()
+    cfg, trainer, pipe = splade_job(DIST_CP_STEPS, ENC_BATCH, device=device)
+    state = trainer.init_or_restore()
+    params, opt = state.params, state.opt_state
+    q = ENC_BATCH // DIST_WORLD
+    ef = init_error_feedback(params)
+    sum_c = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float64), params)
+    sum_t = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float64), params)
+    m_sum = torch.zeros(len(tree_leaves(params)), dtype=torch.float64, device=device)
+    policy = BackupStepPolicy()
+    step_ms, comp_ms, ar_ms, ces, worst_gap, worst_res, overruns = [], [], [], [], 0.0, 0.0, 0
+    prev_level = torch.zeros(len(tree_leaves(params)), device=device)
+    for t in range(DIST_CP_STEPS):
+        batch = {k: torch.from_numpy(v[rank * q: (rank + 1) * q]).to(device) for k, v in pipe.batch_at(t).items()}
+        dist.barrier()
+        policy.start()
+        lowp = tree_map(lambda x: x.detach().to(torch.bfloat16).requires_grad_(), params)
+        loss, metrics = splade_loss(lowp, cfg, SpladeBatch(batch["q_tokens"], batch["q_mask"], batch["d_tokens"],
+                                                          batch["d_mask"]))
+        it = iter([g.float() for g in torch.autograd.grad(loss, tree_leaves(lowp))])
+        grads = tree_map(lambda _: next(it), params)
+        # the worst rank's level a leaf, max |g + e| / 127, before compressed_psum replaces e
+        level = pmax_scalar(torch.stack([torch.clamp((g + e).abs().max(), min=1e-12) / 127.0
+                                             for g, e in zip(tree_leaves(grads), tree_leaves(ef.err))]), group)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        mean, ef = compressed_psum(grads, ef, group)
+        torch.cuda.synchronize(device)
+        comp_ms.append((time.perf_counter() - t0) * 1e3)
+        params, opt, _ = trainer.optimizer.update(mean, opt, params)
+        torch.cuda.synchronize(device)
+        if policy.overrun():
+            overruns += 1
+        step_ms.append(policy.finish() * 1e3)
+        ces.append(float(metrics["ce"].detach()))
+        # the reference: the uncompressed mean, all leaves in one all-reduce
+        t0 = time.perf_counter()
+        flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in tree_leaves(grads)]), group) / float(DIST_WORLD)
+        torch.cuda.synchronize(device)
+        ar_ms.append((time.perf_counter() - t0) * 1e3)
+        numels = [g.numel() for g in tree_leaves(grads)]
+        true = [v.view_as(g) for v, g in zip(flat.split(numels), tree_leaves(grads))]
+        for i, (c, tm, e, sc, st) in enumerate(zip(tree_leaves(mean), true, tree_leaves(ef.err),
+                                                   tree_leaves(sum_c), tree_leaves(sum_t))):
+            lv, m = float(level[i]), 127.0 * float(level[i])
+            gap = float((c - tm).abs().max())
+            # |mean_r (e_{t-1} - e_t)| <= half the last level + half this one, plus float32 rounding
+            allowed = 0.5 * (float(prev_level[i]) + lv) + 2.0 ** -20 * m
+            check(gap <= allowed, f"step {t} leaf {i}: compressed mean {gap:.3g} from the true mean, over "
+                                  f"one level {allowed:.3g}")
+            res = float(e.abs().max())
+            check(res <= 0.5 * lv + 2.0 ** -22 * m, f"step {t} leaf {i}: residual {res:.3g} over half a level "
+                                                    f"{lv:.3g}")
+            worst_gap, worst_res = max(worst_gap, gap / max(lv, float(prev_level[i]))), max(worst_res, res / lv)
+            sc += c
+            st += tm
+        m_sum += 127.0 * level.double()
+        prev_level = level
+    # the error-feedback identity: sum_t compressed = sum_t true - mean over ranks of the last residual
+    worst_id = 0.0
+    for i, (sc, st, e) in enumerate(zip(tree_leaves(sum_c), tree_leaves(sum_t), tree_leaves(ef.err))):
+        e_mean = all_reduce_sum(e.double(), group) / DIST_WORLD
+        gap = float((sc - (st - e_mean)).abs().max())
+        tol = 2.0 ** -19 * float(m_sum[i])  # float32 rounding of each step's sums and quantization
+        check(gap <= tol, f"error feedback identity, leaf {i}: {gap:.3g} over {tol:.3g}")
+        worst_id = max(worst_id, gap / tol)
+    out = dict(n_params=sum(p.numel() for p in tree_leaves(params)), leaves=len(tree_leaves(params)),
+               comp_ms=statistics.median(comp_ms), ar_ms=statistics.median(ar_ms),
+               step_ms=statistics.median(step_ms), ces=ces, worst_gap=worst_gap,
+               worst_res=worst_res, worst_identity=worst_id, ewma_ms=policy.ewma * 1e3,
+               deadline_ms=policy.deadline() * 1e3, overruns=overruns, step_ms_all=step_ms)
+    report("compressed_psum")
+    return out
+
+
+def _dist_rank_main(rank, world, port, device, ckpt_dir, results):
+    """One rank of the distributed phase (gloo; every rank on ``device``,
+    the one card). Reports as it goes; sends its numbers, or its traceback."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world, rank=rank)
+    report = lambda stage: results.put((rank, "progress", stage))
+    try:
+        out = {"lm": _dist_lm(device, ckpt_dir, report), "lookup": _dist_lookup(device, report),
+               "compressed": _dist_compressed(device, report)}
+        dist.barrier()  # every rank is past its last collective before any tears its group down
+        results.put((rank, "result", out))
+    except BaseException:  # sent to the parent, then raised
+        results.put((rank, "error", traceback.format_exc()))
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def distributed_phase(device, card):
+    """The distributed training layer: DIST_WORLD spawned gloo ranks share
+    the card (NCCL refuses two ranks on one card). A rank that fails, or a
+    world from which no rank reports within RANK_TIMEOUT_S, fails the run."""
+    import multiprocessing as mp
+    import queue
+
+    import torch
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # the ranks share the card with what this process still holds
+    ckpt_dir = tempfile.mkdtemp()
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_dist_rank_main, args=(r, DIST_WORLD, port, device, ckpt_dir, results))
+             for r in range(DIST_WORLD)]
+    for p in procs:
+        p.start()
+    got, errors = {}, []
+    try:
+        while len(got) < DIST_WORLD and not errors:  # drain before joining
+            try:
+                rank, kind, payload = results.get(timeout=RANK_TIMEOUT_S)
+            except queue.Empty:
+                errors.append(f"no rank reported within {RANK_TIMEOUT_S} s; results from ranks {sorted(got)}")
+                break
+            if kind == "error":
+                errors.append(f"rank {rank} failed:\n{payload}")
+            elif kind == "result":
+                got[rank] = payload
+            elif rank == 0:
+                log(f"  distributed phase: rank 0 {payload} at {time.perf_counter() - t_phase:.1f} s")
+        for p in procs:
+            p.join(timeout=RANK_TIMEOUT_S if not errors else 5)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    check(not errors, "; ".join(errors))
+    check(all(p.exitcode == 0 for p in procs), f"rank exit codes {[p.exitcode for p in procs]}")
+
+    lm, lk, cp = got[0]["lm"], got[0]["lookup"], got[0]["compressed"]
+    per_rank = lambda part, key, nd=2: [round(got[r][part][key], nd) for r in range(DIST_WORLD)]
+    rank_gb = [b / 1e9 for b in per_rank("lm", "rank_bytes", 0)]
+    stages = ", ".join(f"{k} {v:.1f} s" for k, v in lm["place_stages"].items())
+    log(f"distributed ({card}): qwen3-4b, {lm['n_params']:,} parameters + Adafactor moments, float32, placed "
+        f"by stacked_lm_param_specs(fsdp, kv_shard=False) on mesh (data 2, model 2) in {lm['place_s']:.1f} s "
+        f"({stages}): {[round(g, 3) for g in rank_gb]} GB a rank of {lm['whole_bytes'] / 1e9:.3f} GB "
+        f"({rank_gb[0] * 1e9 / lm['whole_bytes']:.4f}), params {lm['rank_param_bytes'] / 1e9:.3f} GB a rank; "
+        f"peak reserved {per_rank('lm', 'reserved_gb')} GB a rank")
+    log(f"distributed ({card}): reshard_state to (data 1, model 4) in {per_rank('lm', 'reshard_s')} s (ranks); "
+        f"all {lm['resharded_leaves']} leaves equal to a fresh placement's slices of the redrawn leaves; "
+        f"{len(DIST_GATHERED)} leaves ({lm['gathered_bytes'] / 1e9:.3f} GB) gathered on rank 0 in "
+        f"{lm['gather_s']:.2f} s, equal to the drawn bits")
+    log(f"distributed ({card}): checkpoint of the {lm['ckpt_layers']}-layer cut "
+        f"({lm['ckpt_whole_bytes'] / 1e9:.3f} GB) gathered on rank 0 in {lm['ckpt_gather_s']:.2f} s and saved in "
+        f"{lm['save_s']:.2f} s; restore_checkpoint(shardings=) onto (data 1, model 4) in "
+        f"{per_rank('lm', 'restore_s')} s (ranks); all {lm['restored_leaves']} restored shards equal to the "
+        f"saved bits")
+    log(f"distributed ({card}): dlrm-rm2 table {lk['rows']:,} x {lk['dim']} float32 ({lk['table_gb']:.3f} GB), "
+        f"{lk['shard_gb']:.3f} GB a rank over model = {DIST_WORLD}")
+    for label, n in DIST_LOOKUP_BATCHES.items():
+        for name in ("psum", "scattered"):
+            r = lk[f"{name}/{label}"]
+            log(f"  {name} lookup at {label} ({n} rows x {lk['fields']} fields): {r['ms']:.3f} ms a call, "
+                f"backward {r['bwd_ms']:.3f} ms (medians of {DIST_REPS}); output equal to field_lookup's bits, "
+                f"out-of-range row zero; gradient max err {r['grad_err']:.3g} over {r['rows_checked']} rows of "
+                f"rank 0's shard (scaled by model it would be {r['scaled_err']:.3g} off)")
+        log(f"  field_lookup over the whole table at {label}: {lk[f'field_lookup/{label}']:.3f} ms")
+    log(f"distributed ({card}): compressed_psum over data = {DIST_WORLD}, SPLADE encoder ({cp['n_params']:,} "
+        f"parameters, {cp['leaves']} leaves), {DIST_CP_STEPS} steps of a quarter of a batch of {ENC_BATCH} a "
+        f"rank: compressed_psum (leaf by leaf) {cp['comp_ms']:.1f} ms a step, the reference's uncompressed "
+        f"all-reduce (one flat buffer) {cp['ar_ms']:.1f} ms, step {cp['step_ms']:.1f} ms (medians); ce "
+        f"{cp['ces'][0]:.4f} -> {cp['ces'][-1]:.4f} (rank 0's quarter; AdamW's warmup of 10 steps at untrained ce, "
+        f"as in the encoder phase's first 20 steps); worst |compressed - true mean| {cp['worst_gap']:.4f} of a "
+        f"level (the larger of the step's and the last one's), worst residual {cp['worst_res']:.4f} of a "
+        f"level, error-feedback identity at {cp['worst_identity']:.4f} of its tolerance")
+    log(f"distributed ({card}): BackupStepPolicy over the {DIST_CP_STEPS} step times: EWMA {cp['ewma_ms']:.1f} "
+        f"ms, deadline {cp['deadline_ms']:.1f} ms, {cp['overruns']} overruns; steps "
+        f"{[round(x, 1) for x in cp['step_ms_all']]} ms; ce by step {[round(c, 2) for c in cp['ces']]}")
+    log(f"distributed phase {time.perf_counter() - t_phase:.1f} s")
+    return got
+
+
 def main() -> int:
     import torch
 
@@ -3063,6 +3583,10 @@ def smoke(device) -> int:
 
     # ---- 7i. LM training: qwen3-4b through the launcher's --arch job, its cut card against CPU, phi3.5-moe
     lm_train_phase(device)
+
+    # ---- 7j. the distributed training layer: 4 gloo ranks on the card (placement, reshard, sharded restore,
+    # vocab-parallel lookups, compressed_psum)
+    distributed_phase(device, card)
 
     # ---- 8. each kernel vs its plain version at its path's shapes, timed
     flush = torch.empty(128 * 2**20, dtype=torch.float32, device=device)

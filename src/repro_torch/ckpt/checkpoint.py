@@ -187,10 +187,17 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(directory: str, target: Any, step: Optional[int] = None) -> tuple[Any, int]:
+def restore_checkpoint(directory: str, target: Any, step: Optional[int] = None,
+                       shardings: Any = None) -> tuple[Any, int]:
     """Restore into the structure of ``target`` (a tree of tensors): each leaf
     by its own path key, cast to the target leaf's dtype, on the target leaf's
-    device. Returns (tree, step)."""
+    device. Returns (tree, step).
+
+    With ``shardings`` (a matching tree of ``distributed.sharding.NamedSharding``
+    placements over a ``DeviceMesh``), each leaf comes back as this rank's
+    shard under its placement, on the mesh's device: the elastic-resharding
+    path (restore onto a different mesh than the saver's). Only the target's
+    shapes and dtypes are read then, so it may lie on the ``meta`` device."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -200,18 +207,24 @@ def restore_checkpoint(directory: str, target: Any, step: Optional[int] = None) 
         # an explicit step must honour the commit marker too: step_<N> may exist as
         # an uncommitted or half-deleted directory and must never be loaded
         raise FileNotFoundError(f"checkpoint {path} has no {COMMIT_MARKER} marker")
-    arrays = dict(np.load(io.BytesIO(_decompress(path))))
+    arrays = np.load(io.BytesIO(_decompress(path)))  # each member is read when it is asked for
 
     flat_target = flatten_with_paths(target)
-    missing = set(flat_target) - set(arrays)
+    missing = set(flat_target) - set(arrays.files)
     if missing:
         raise KeyError(f"checkpoint missing keys: {sorted(missing)[:5]} ...")
 
+    flat_shard = flatten_with_paths(shardings) if shardings is not None else None
     new_leaves = []
     for k, leaf in flat_target.items():
         arr = arrays[k]
         if list(arr.shape) != list(leaf.shape):
             raise ValueError(f"shape mismatch for {k}: ckpt {arr.shape} vs target {tuple(leaf.shape)}")
-        new_leaves.append(torch.from_numpy(arr).to(leaf.dtype).to(leaf.device))
+        if flat_shard is None:
+            new_leaves.append(torch.from_numpy(arr).to(leaf.dtype).to(leaf.device))
+        else:
+            sh = flat_shard[k]
+            piece = np.ascontiguousarray(sh.local_slice(arr))
+            new_leaves.append(torch.from_numpy(piece).to(leaf.dtype).to(sh.mesh.device))
     it = iter(new_leaves)
     return tree_map(lambda _: next(it), target), step

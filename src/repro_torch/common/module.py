@@ -22,7 +22,10 @@ def _trunc_normal(shape, std: float, generator, dtype, device) -> torch.Tensor:
     device of ``generator``: from a CPU generator (or none) on the host, so a
     seed gives the same weights on every device; from a CUDA generator on the
     card, which is what makes a model of billions of parameters quick to
-    initialise there."""
+    initialise there. On the ``meta`` device nothing is drawn: the tree's
+    shapes alone, for placements and restore targets."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     w = torch.empty(shape, dtype=torch.float32, device=generator.device if generator is not None else "cpu")
     torch.nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
     return w.to(device=device, dtype=dtype)

@@ -5,7 +5,9 @@
 under ``root``, runs every case of ``spec`` on every rank in that one world,
 and returns each rank's results (host numpy arrays) by rank. The last two
 cases drive the serving launcher's job through the rank-0 group front end,
-and a front end whose rank 1 goes silent on a group of its own.
+and a front end whose rank 1 goes silent on a group of its own. A spec with
+a ``"runner"`` (``"module:function"``, a function of (spec, report)) runs
+that rank body in place of these cases.
 
 Every rank reports as it goes (joined, each case done, its result), and the
 parent's wait runs from the last report of any rank, so a world on a loaded
@@ -22,6 +24,7 @@ This module imports torch and the port only, so a rank starts without JAX.
 
 from __future__ import annotations
 
+import importlib
 import multiprocessing as mp
 import os
 import queue
@@ -172,7 +175,8 @@ def _rank_main(rank: int, world: int, root: str, spec: dict, results) -> None:
     dist.init_process_group("gloo", init_method=f"file://{os.path.join(root, 'store')}", world_size=world, rank=rank)
     results.put((rank, "joined", None))
     try:
-        out = _run_cases(spec, lambda case: results.put((rank, "progress", case)))
+        module, _, fn = spec.get("runner", f"{__name__}:_run_cases").partition(":")
+        out = getattr(importlib.import_module(module), fn)(spec, lambda case: results.put((rank, "progress", case)))
         dist.barrier()  # every rank is past its last collective before any tears its group down
     except BaseException:  # reported to the parent, then re-raised
         results.put((rank, "error", traceback.format_exc()))
