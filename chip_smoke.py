@@ -96,7 +96,18 @@ and 16,384 rows (outputs to the bit against ``field_lookup``, zeros for
 out-of-range ids, each shard's gradient against the whole table's); 20
 data-parallel steps of the SPLADE encoder through ``compressed_psum``
 against the uncompressed mean (within a quantization level, the
-error-feedback identity), its step times fed to ``BackupStepPolicy``; holds
+error-feedback identity), its step times fed to ``BackupStepPolicy``; runs
+the cells phase: ``launch/dryrun.py``'s meta pass over the 37 cells of
+``launch/specs.py`` on both production meshes in 8 processes (a line a
+cell: per-rank argument bytes, global and per-device FLOPs, ops), then on
+the card through ``measure_cell`` the schnet, dlrm-rm2, din and mind
+training steps, mind's 16-shard retrieval (dequant_matmul counted, ids
+against ``impl="ref"``), qwen3-4b's decode at a 32,768-token cache and its
+train_4k step at one (pod 2, data 16) position's share (ms, peak GB above
+what the card held before, the profiler's kernels, counted and model
+TFLOP/s; the schnet molecule and mind training steps held against the same
+step on the CPU), and ``impl="legacy"`` on the 1 M index
+at lsp0, lsp2 and bmp against ``impl="ref"``; holds
 each kernel against its plain version again at the shapes
 its path gave it and times both with CUDA events (median of 20, L2 flushed):
 sbmax at each of its call sites (phase 1, SBavg, bmp's BoundSum; a row each,
@@ -124,6 +135,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import math
 import os
 import shutil
 import statistics
@@ -232,6 +244,36 @@ DIST_LOOKUP_BATCHES = {"serve_p99": 512, "serve_bulk chunk": 16_384}
 DIST_ROW_CHUNK = 1 << 20  # table rows drawn per seeded chunk, so a rank draws only its own rows
 DIST_GRAD_RTOL = 1e-6
 DIST_REPS = 5
+# cells phase: launch/dryrun.py's meta pass over every runnable cell on both production meshes, in
+# CELL_WORKERS spawned processes (host work); then, on the card, the cells one H100 holds at full shape
+# or at the share one (pod 2, data 16, model 16) position gets: (arch, shape, ShapeSpec fields cut, the
+# cut by name, timed steps). Then impl="legacy" on the 1 M-document index, in batches of LEGACY_BATCH
+CELL_WORKERS, CELL_SEED = 8, 0
+CARD_CELLS = [
+    ("schnet", "molecule", {}, "", 3),
+    ("schnet", "full_graph_sm", {}, "", 3),
+    ("schnet", "minibatch_lg", {}, "", 3),
+    ("dlrm-rm2", "train_batch", {}, "", 3),
+    ("din", "train_batch", {}, "", 3),
+    ("mind", "train_batch", {"batch": 4096},
+     "batch 4,096 of 65,536: the share of one (data 16, model 16) position; the in-batch softmax's [B, B] "
+     "logits alone are 17.2 GB at the full batch, three times that with their softmax and gradient", 3),
+    ("mind", "retrieval_cand", {}, "its 16 model shards on one card, through the host loop", 3),
+    ("qwen3-4b", "decode_32k", {"global_batch": 4},
+     "batch 4 of 128: the share of one (pod 2, data 16) position", 4),
+    ("qwen3-4b", "train_4k", {"global_batch": 8},
+     "8 of 256 sequences: the share of one (pod 2, data 16) position", 1),
+]
+# card cells whose first training step is also run on a CPU copy of the same inputs: the loss and
+# every updated parameter held at GNN_CPU_RTOL x max |reference|, the update (new - old, all leaves)
+# at CELL_UPDATE_RTOL x its largest CPU element. Adafactor divides each gradient element by its row's
+# and column's RMS, so an element whose gradient is small beside its row's carries the float32
+# summation noise of the card's atomics into the update (about 4e-4 of the largest update on
+# schnet's molecule step, NVIDIA H100 80GB HBM3)
+CELL_CPU_HELD = (("schnet", "molecule"), ("mind", "train_batch"))
+CELL_UPDATE_RTOL = 1e-2
+LEGACY_VARIANTS, LEGACY_BATCH = ("lsp0", "lsp2", "bmp"), 32
+LEGACY_TOL = dict(rtol=1e-5, atol=1e-5)  # float32 sums in another order (ref's kernel-free scoring)
 # name -> (core.ops attribute, CUDA source, the TPU kernel it replaces)
 KERNELS = {
     "sbmax": ("sbmax_kernel", "src/repro_torch/csrc/sbmax.cu", "src/repro/kernels/sbmax/kernel.py:51"),
@@ -3392,6 +3434,242 @@ def distributed_phase(device, card):
     return got
 
 
+def _cell_mesh(arch_name, shape_name, meta=False):
+    """The mesh a card cell is built on: the production mesh's model axis for
+    mind's retrieval (its per-shard layout), else one rank (its shape alone
+    for the meta pass, whose recsys lookups are field_lookup)."""
+    from repro_torch.launch.mesh import DeviceMesh, MeshShape
+
+    if (arch_name, shape_name) == ("mind", "retrieval_cand"):
+        return MeshShape((16, 16), ("data", "model"))
+    return MeshShape((1, 1), ("data", "model")) if meta else DeviceMesh((1, 1), ("data", "model"), device="cuda")
+
+
+def _card_cell(arch_name, shape_name, fields, meta=False):
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.specs import cell_for_shape
+
+    arch = get_arch(arch_name)
+    shape = dataclasses.replace(arch.shapes[shape_name], **fields)
+    return cell_for_shape(arch, shape, _cell_mesh(arch_name, shape_name, meta))
+
+
+def _count_card_cell(arch_name, shape_name, fields):
+    """Counted FLOPs of a card cell (a pool job): its meta pass on the mesh's shape."""
+    from repro_torch.launch.dryrun import count_cell
+
+    cost, _, _, counted = count_cell(_card_cell(arch_name, shape_name, fields, meta=True))
+    return cost["flops"], counted
+
+
+def _meta_pass(out_dir, card_bytes):
+    """launch/dryrun.py's run_cell over every cell x both production meshes in
+    CELL_WORKERS spawned processes, with the card cells' FLOP counts; prints a
+    line a cell and returns ({(mesh, arch, shape): record}, {card cell: flops})."""
+    import concurrent.futures
+    import multiprocessing as mp
+
+    from repro_torch.configs.base import all_arch_names, get_arch
+    from repro_torch.launch.dryrun import run_cell_on_both_meshes
+
+    t0 = time.perf_counter()
+    jobs = [(name, shape) for name in all_arch_names() for shape in get_arch(name).shapes]
+    # the long ones first: the LM train steps, then the prefills
+    jobs.sort(key=lambda j: (get_arch(j[0]).family != "lm", j[1] != "train_4k", j[1] != "prefill_32k"))
+    with concurrent.futures.ProcessPoolExecutor(CELL_WORKERS, mp_context=mp.get_context("spawn")) as pool:
+        futs = {j: pool.submit(run_cell_on_both_meshes, j[0], j[1], out_dir) for j in jobs[:5]}
+        counts = {(a, sh): pool.submit(_count_card_cell, a, sh, f) for a, sh, f, _, _ in CARD_CELLS}
+        futs.update({j: pool.submit(run_cell_on_both_meshes, j[0], j[1], out_dir) for j in jobs[5:]})
+        records = {(m, a, sh): rec for (a, sh), f in futs.items() for m, rec in f.result().items()}
+        flops = {k: f.result() for k, f in counts.items()}
+    n_ok = sum(r["status"] == "ok" for r in records.values())
+    n_skip = sum(r["status"] == "skipped" for r in records.values())
+    failed = [k for k, r in records.items() if r["status"] not in ("ok", "skipped")]
+    for key in sorted(records):
+        r = records[key]
+        if r["status"] != "ok":
+            log(f"  dry run {key[0]} {key[1]} {key[2]}: {r['status']} {r.get('reason', r.get('error', ''))}")
+            continue
+        arg = r["memory"]["argument_bytes"]
+        log(f"  dry run {key[0]} {key[1]} {key[2]} ({r['kind']}): per-rank arguments {arg / 1e9:.4f} GB, outputs "
+            f"{r['memory']['output_bytes'] / 1e9:.4f} GB; global {r['cost']['flops']:.6g} FLOP, per device "
+            f"{r['cost_adjusted']['flops'] / 1e12:.4f} TFLOP; {r['op_stats']['n_ops']} ops; counted in "
+            f"{r['count_s']:.1f} s ({r['cost']['counted']})")
+        if arg > card_bytes:
+            log(f"    {key[1]} {key[2]} on {key[0]}: {arg / 1e9:.1f} GB of arguments a rank exceed the card's "
+                f"{card_bytes / 1e9:.1f} GB")
+    log(f"dry run: {n_ok} ok, {n_skip} skipped, {len(failed)} failed over 2 meshes in "
+        f"{time.perf_counter() - t0:.1f} s ({CELL_WORKERS} processes)")
+    check(not failed, f"dry-run cells failed: {[(k, records[k].get('error')) for k in failed]}")
+    check(n_ok == 74 and n_skip == 6, f"the dry run built {n_ok} cells and skipped {n_skip}, not 74 and 6")
+    return records, flops
+
+
+def _card_model_flops(arch_name, shape_name, fields):
+    """eval/model_flops.py's count of a card cell at its cut shape: 6·N·tokens
+    for an LM train step, the analytic per-op counts elsewhere."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.eval.model_flops import model_flops
+
+    arch = get_arch(arch_name)
+    return model_flops(arch, shape_name, dataclasses.replace(arch.shapes[shape_name], **fields))
+
+
+def _train_step_held_to_cpu(label, cell, args):
+    """One training step of ``cell`` on the card and on a CPU copy of the same
+    inputs: the loss and each updated parameter within GNN_CPU_RTOL x max
+    |reference|, the update (new - old, all leaves) within CELL_UPDATE_RTOL x
+    its largest CPU element. The card's step updates ``args`` in place; returns the
+    next step's arguments."""
+    import torch
+
+    from repro_torch.common.tree_utils import flatten_with_paths, tree_map
+
+    def to_cpu(x):
+        return x.detach().cpu().clone() if isinstance(x, torch.Tensor) else x
+
+    cpu_args = tree_map(to_cpu, args)
+    old = flatten_with_paths(tree_map(to_cpu, cpu_args[0]))
+    t0 = time.perf_counter()
+    out = cell.fn(*args)
+    torch.cuda.synchronize()
+    cpu_out = cell.fn(*cpu_args)
+    _held_to_cpu(f"{label} loss", out[2].reshape(1), cpu_out[2].reshape(1), GNN_CPU_RTOL)
+    want = flatten_with_paths(cpu_out[0])
+    err = upd = 0.0
+    for path, got in flatten_with_paths(out[0]).items():  # float32 on the host: a 2.6 GB table stays one copy
+        got, w = got.detach().cpu(), want[path]
+        check(got.shape == w.shape and bool(torch.isfinite(got).all()), f"{label} updated {path}: shape or values")
+        e, ref = float((got - w).abs().max()), float(w.abs().max())
+        check(e <= GNN_CPU_RTOL * ref, f"{label} updated {path}: card against CPU {e} > {GNN_CPU_RTOL} x {ref}")
+        err, upd = max(err, e), max(upd, float((w - old[path]).abs().max()))
+    log(f"{label} updated parameters: each of {len(want)} leaves within {GNN_CPU_RTOL} x its max |reference|")
+    log(f"{label} update over {len(want)} leaves: card against the CPU port max abs error {err:.3g} (largest "
+        f"CPU update {upd:.3g}, ratio {err / upd if upd else float('nan'):.3g}, bound {CELL_UPDATE_RTOL} x "
+        f"it); held in {time.perf_counter() - t0:.1f} s")
+    check(upd > 0 and err <= CELL_UPDATE_RTOL * upd, f"{label}: update error {err} > {CELL_UPDATE_RTOL} x {upd}")
+    return (out[0], out[1]) + tuple(args[2:])
+
+
+def _card_cells(device, card, flops, core_ops, sites):
+    """Each of CARD_CELLS through measure_cell: ms a step, the cell's own peak
+    GB (above what the card held before its inputs were drawn), the profiler's
+    kernels, counted and model TFLOP/s; the CELL_CPU_HELD training steps
+    against the CPU port; mind's retrieval with dequant_matmul counted and
+    its ids against impl="ref"."""
+    import torch
+
+    from repro_torch.launch.dryrun import draw_args, measure_cell
+
+    rows = {}
+    for arch_name, shape_name, fields, cut, steps in CARD_CELLS:
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        cell = _card_cell(arch_name, shape_name, fields)
+        gen = torch.Generator(device=device).manual_seed(CELL_SEED)
+        torch.cuda.synchronize(device)
+        base = torch.cuda.memory_allocated(device)
+        args = draw_args(cell, device, gen)
+        extra = ""
+        if cell.kind == "retrieve_step":
+            out, launches, _ = counted(core_ops, lambda: cell.fn(*args), sites)
+            ref_ids, ref_vals = cell.fn(*args, impl="ref")
+            check(launches["dequant_matmul"] > 0, "dequant_matmul was never launched on mind's 16-shard cell")
+            check(torch.equal(out[0], ref_ids), "mind's 16-shard cell: kernel ids differ from impl='ref'")
+            torch.testing.assert_close(out[1], ref_vals, **TOL)
+            valid = float((out[0] >= 0).float().mean())
+            extra = (f"; dequant_matmul launched {launches['dequant_matmul']} times, top {out[0].shape[1]} of "
+                     f"{out[0].shape[0]} interest rows equal to impl='ref' on ids ({valid:.4f} of slots filled)")
+        if (arch_name, shape_name) in CELL_CPU_HELD:
+            args = _train_step_held_to_cpu(f"card cell {arch_name} {shape_name}", cell, args)
+            extra += "; its first step held against the CPU port"
+        res = measure_cell(cell, device, gen, steps=steps, args=args, flops=flops[(arch_name, shape_name)][0],
+                           base_bytes=base)
+        model = _card_model_flops(arch_name, shape_name, fields)
+        out = res["out"]
+        leaves = [x for x in (out if isinstance(out, tuple) else (out,)) if isinstance(x, torch.Tensor)]
+        check(all(bool(torch.isfinite(x.float()).all()) for x in leaves if x.is_floating_point()),
+              f"{arch_name} {shape_name}: non-finite outputs")
+        if cell.kind == "train_step":
+            loss = float(out[2])
+            check(math.isfinite(loss), f"{arch_name} {shape_name}: loss {loss}")
+            extra += f"; loss {loss:.4f}"
+        prof = res["profile"]
+        top = "; ".join(f"{name} x{n} {ms:.2f} ms" for name, n, ms in prof.get("top", [])[:6]) or "not measured"
+        log(f"card cell {arch_name} {shape_name} ({cell.kind}) [{card}]: {res['ms']:.2f} ms a step (median of "
+            f"{steps}: {[round(x, 2) for x in res['ms_all']]}), peak {res['peak_bytes'] / 1e9:.2f} GB above the "
+            f"{res['base_bytes'] / 1e9:.2f} GB held before its inputs were drawn (absolute "
+            f"{res['peak_abs_bytes'] / 1e9:.2f} GB), counted {res['counted_tflops']:.2f} TFLOP/s "
+            f"({res['flops']:.4g} FLOP counted on meta, {res['counted']}: dispatched, remat and launched "
+            f"attention tiles included), model {model / (res['ms'] * 1e-3) / 1e12:.2f} TFLOP/s ({model:.4g} "
+            f"FLOP, eval/model_flops.py) against the H100's {BF16_FLOP_PER_S / 1e12:.0f} (bf16) and "
+            f"{FP32_FLOP_PER_S / 1e12:.0f} (float32) peaks{extra}; cut: {cut or 'none (full shape)'}; {cell.note}")
+        if prof.get("n_kernels"):
+            log(f"  profiled warm-up ({res['profiled']}): {prof['n_kernels']} kernels, device busy "
+                f"{prof['busy_ms']:.2f} of {prof['wall_ms']:.2f} ms (idle {prof['idle']:.3f}); {top}")
+        else:
+            log(f"  profiled warm-up ({res['profiled']}): the profiler saw no device time (not measured)")
+        rows[(arch_name, shape_name)] = {k: res[k] for k in ("ms", "peak_bytes", "counted_tflops")}
+        del cell, args, res, out, leaves
+        log(f"  {arch_name} {shape_name} took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def _legacy_on_the_index(idx, cfg, batches, device, card):
+    """The 256 requests under impl="legacy" at lsp0, lsp2 and bmp against
+    impl="ref" (ids, θ, both counters equal; scores to float32 tolerance),
+    timed beside impl="kernel", in batches of LEGACY_BATCH."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import Retriever
+
+    requests = [r for b in batches for r in b]
+    small = [requests[i: i + LEGACY_BATCH] for i in range(0, len(requests), LEGACY_BATCH)]
+    for variant in LEGACY_VARIANTS:
+        vcfg = dataclasses.replace(cfg, variant=variant)
+        out, ms = {}, {}
+        for impl in ("legacy", "ref", "kernel"):
+            retr = Retriever.from_index(idx, vcfg, impl=impl, device=device)
+            retr.search_batch(small[0])  # warm-up
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            out[impl] = [r for b in small for r in retr.search_batch(b)]
+            ms[impl] = (time.perf_counter() - t0) * 1e3 / len(small)
+        for a, b in zip(out["legacy"], out["ref"]):
+            check(np.array_equal(a.doc_ids, b.doc_ids), f"legacy {variant}: ids differ from impl='ref'")
+            check((a.n_superblocks_visited, a.n_blocks_scored) == (b.n_superblocks_visited, b.n_blocks_scored),
+                  f"legacy {variant}: counters differ from impl='ref'")
+            check(np.isclose(a.theta, b.theta, **LEGACY_TOL), f"legacy {variant}: theta {a.theta} vs {b.theta}")
+            np.testing.assert_allclose(a.scores, b.scores, **LEGACY_TOL)
+        same_kernel = all(np.array_equal(a.doc_ids, b.doc_ids) for a, b in zip(out["legacy"], out["kernel"]))
+        log(f"legacy {variant} [{card}]: {len(requests)} requests in {len(small)} search_batch calls of "
+            f"{LEGACY_BATCH}: ids, theta and both counters equal to impl='ref'; {ms['legacy']:.2f} ms a call, "
+            f"against impl='ref' {ms['ref']:.2f} ms and impl='kernel' {ms['kernel']:.2f} ms "
+            f"(legacy / kernel {ms['legacy'] / ms['kernel']:.2f}x; kernel ids equal to legacy's: {same_kernel})")
+
+
+def cells_phase(device, card, idx, cfg, batches, core_ops, sites):
+    """The cell builder and its dry run (launch/specs.py, launch/dryrun.py):
+    (a) the meta pass over 37 cells x 2 meshes in CELL_WORKERS processes, (b)
+    CARD_CELLS on the card through measure_cell, (c) impl="legacy" on the
+    1 M-document index. Any cell that fails to build, run or match fails the run."""
+    import torch
+
+    t_phase = time.perf_counter()
+    out_dir = tempfile.mkdtemp()
+    try:
+        _, flops = _meta_pass(out_dir, torch.cuda.get_device_properties(device).total_memory)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"  meta pass done at {time.perf_counter() - t_phase:.1f} s")
+    _card_cells(device, card, flops, core_ops, sites)
+    torch.cuda.empty_cache()
+    log(f"  card cells done at {time.perf_counter() - t_phase:.1f} s")
+    _legacy_on_the_index(idx, cfg, batches, device, card)
+    log(f"cells phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3587,6 +3865,10 @@ def smoke(device) -> int:
     # ---- 7j. the distributed training layer: 4 gloo ranks on the card (placement, reshard, sharded restore,
     # vocab-parallel lookups, compressed_psum)
     distributed_phase(device, card)
+
+    # ---- 7k. the cell builder and its dry run: 37 cells x 2 meshes counted on meta, the cells one card
+    # holds run through measure_cell, impl="legacy" on the 1 M-document index
+    cells_phase(device, card, idx, retr.static_cfg, batches, core_ops, sites)
 
     # ---- 8. each kernel vs its plain version at its path's shapes, timed
     flush = torch.empty(128 * 2**20, dtype=torch.float32, device=device)

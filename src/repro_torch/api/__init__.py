@@ -10,6 +10,7 @@ from repro_torch.core.config import (
     RetrievalConfig,
     StaticConfig,
     combine,
+    recommended,
     recommended_static,
 )
 
@@ -25,6 +26,7 @@ __all__ = [
     "combine",
     "get_backend",
     "list_backends",
+    "recommended",
     "recommended_static",
     "register_backend",
 ]

@@ -34,18 +34,19 @@ def _children(tree: Any) -> Iterator[tuple[str, Any]] | None:
 
 
 def flatten_with_paths(tree: Any) -> dict[str, Any]:
-    """Flatten a tree into {'a/b/0': leaf}, in the JAX package's leaf order."""
+    """Flatten a tree into {'a/b/0': leaf}, in the JAX package's leaf order.
+    An explicit stack, not a recursive closure: a closure that calls itself
+    is a reference cycle, which would keep every leaf alive until the next
+    garbage collection."""
     out = {}
-
-    def walk(node, prefix):
+    stack = [("", tree)]
+    while stack:
+        prefix, node = stack.pop()
         kids = _children(node)
         if kids is None:
             out[prefix] = node
-            return
-        for key, child in kids:
-            walk(child, f"{prefix}/{key}" if prefix else key)
-
-    walk(tree, "")
+            continue
+        stack.extend(reversed([(f"{prefix}/{key}" if prefix else key, child) for key, child in kids]))
     return out
 
 
@@ -67,6 +68,28 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, *vals) for vals in zip(tree, *rest))
     return fn(tree, *rest)
+
+
+def tree_zeros_like(tree: Any) -> Any:
+    return tree_map(torch.zeros_like, tree)
+
+
+def tree_add(a: Any, b: Any) -> Any:
+    return tree_map(torch.add, a, b)
+
+
+def tree_scale(tree: Any, s) -> Any:
+    return tree_map(lambda x: x * s, tree)
+
+
+def tree_dot(a: Any, b: Any) -> torch.Tensor:
+    """The sum over leaves of each pair's inner product, in float32, added in
+    leaf order as ``jax.tree.reduce`` adds them."""
+    total = None
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        d = torch.vdot(x.reshape(-1), y.reshape(-1)).to(torch.float32)
+        total = d if total is None else total + d
+    return torch.zeros((), dtype=torch.float32) if total is None else total
 
 
 def global_norm(tree: Any) -> torch.Tensor:

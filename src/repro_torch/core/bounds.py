@@ -35,3 +35,13 @@ def fold_scale(pb: PackedBounds, tids: torch.Tensor, ws: torch.Tensor):
     return ws * sc, 1.0
 
 
+def bound_scores(pb: PackedBounds, tids: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
+    """BoundSum / SBMax (paper Eq. 1): [Q, N] = sum_i ws[:, i] * W[tids[:, i], :].
+
+    Sentinel tids (== vocab) carry ws == 0; clamping the row index keeps the gather
+    in-bounds and the zero weight kills the contribution.
+    """
+    ws, scale = fold_scale(pb, tids, ws)
+    rows = pb.packed[torch.clamp(tids, 0, pb.packed.shape[0] - 1).long()]  # [Q, nq, W]
+    vals = unpack_strided(rows, pb.bits, pb.granule_words)[..., : pb.n]  # [Q, nq, N]
+    return torch.einsum("qi,qin->qn", ws, vals.to(torch.float32)) * scale

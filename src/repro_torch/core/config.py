@@ -240,10 +240,21 @@ def combine(static: StaticConfig, dyn: Optional[DynamicParams] = None) -> Retrie
     )
 
 
+# Paper-recommended zero-shot configurations (§Conclusion):
+#   k=10   -> γ=250 (or 500), β=0.33, b=16, c=16, 4-bit SIMDBP-256*, Fwd docs
+#   k=1000 -> γ=1000 (or 2000), β=0.5, b=4..8, c=16
+def recommended(k: int, variant: str = "lsp0") -> RetrievalConfig:
+    if k <= 10:
+        return RetrievalConfig(variant=variant, k=k, gamma=250, beta=0.33)
+    if k <= 100:
+        return RetrievalConfig(variant=variant, k=k, gamma=500, beta=0.33)
+    return RetrievalConfig(variant=variant, k=k, gamma=1000, beta=0.5)
+
+
 def recommended_static(k: int, n_superblocks: int = 0, variant: str = "lsp0") -> StaticConfig:
     """Static half of the paper's zero-shot preset (γ = 250 / 500 / 1000 for
     k ≤ 10 / ≤ 100 / above, γ₀ = 32), with γ clamped to the corpus's superblocks."""
-    gamma = 250 if k <= 10 else 500 if k <= 100 else 1000
+    gamma = recommended(k, variant).gamma
     if n_superblocks:
         gamma = max(1, min(gamma, n_superblocks))
     return StaticConfig(variant=variant, gamma=gamma, gamma0=min(32, gamma), k_max=k)

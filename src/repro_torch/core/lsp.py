@@ -19,7 +19,11 @@ Every site whose top-k *indices* are used ties by lower position, as
 canonical (score desc, id asc) order. Results therefore match the JAX
 package's ids and counters, with scores equal up to float32 summation order.
 
-impl: "auto" | "ref" | "kernel", as in ``core.ops``.
+impl: "auto" | "ref" | "kernel", as in ``core.ops``, plus "legacy": the
+profiling baseline from before the document-scoring kernels. Its bounds run
+at "ref", both scoring rounds gather the selected blocks' documents by
+position (``scoring.score_positions_fwd``) whatever the layout, and θ is the
+last lane of the top-k_max list (the static point k = k_max only).
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import torch
 from repro_torch.core import ops
 from repro_torch.core.config import Dynamic, DynamicArgs, DynamicParams, StaticConfig, dynamic_args
 from repro_torch.core.query import QueryBatch, prune_terms, scatter_dense
-from repro_torch.core.scoring import NEG, score_blocks
+from repro_torch.core.scoring import NEG, score_blocks, score_positions_fwd
 from repro_torch.core.topk import canonical_topk, stable_topk
 from repro_torch.index.layout import LSPIndex, index_device
 
@@ -51,10 +55,13 @@ def masked_kth_min(vals: torch.Tensor, k_sel: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.where(sel, vals, float("inf")).amin(dim=-1), min=0.0)
 
 
-def _kth_threshold(scores: torch.Tensor, k: torch.Tensor, k_max: int) -> torch.Tensor:
-    """θ = the row's k-th best score (0 if fewer than k valid docs)."""
+def _kth_threshold(scores: torch.Tensor, k: torch.Tensor, k_max: int, legacy: bool = False) -> torch.Tensor:
+    """θ = the row's k-th best score (0 if fewer than k valid docs); under
+    ``legacy`` the k_max-th, from the last lane of the top list."""
     width = scores.shape[-1]
     vals = torch.topk(scores, min(k_max, width), dim=-1).values  # values only: tie order immaterial
+    if legacy:
+        return torch.clamp(vals[:, -1], min=0.0)
     return masked_kth_min(vals, torch.clamp(k, max=width))
 
 
@@ -87,6 +94,21 @@ def competitive_block_topk(flat_bounds: torch.Tensor, flat_gids: torch.Tensor, b
     return bvals, torch.where(mask, gids, 0).long(), mask
 
 
+def _score_blocks_dispatch(index, qdense, blk_ids, blk_mask, scfg: StaticConfig, impl: str):
+    """Both scoring rounds: through ``score_blocks``, or under "legacy" by
+    the positions of the blocks' documents, masked blocks scoring NEG."""
+    if impl != "legacy":
+        return score_blocks(index, qdense, blk_ids, blk_mask, scfg.doc_layout, impl)
+    b = index.b
+    pos = (blk_ids[:, :, None] * b + torch.arange(b, device=blk_ids.device)[None, None, :]).reshape(
+        blk_ids.shape[0], -1)
+    scores = score_positions_fwd(index, qdense, pos)
+    return torch.where(torch.repeat_interleave(blk_mask, b, dim=1), scores, NEG), pos
+
+
+IMPLS = ops.IMPLS + ("legacy",)
+
+
 def _merge_rounds(index, scfg, d, scores0, pos0, scores1, pos1):
     """Canonical (score desc, doc-id asc) top-k over both scoring rounds."""
     all_scores = torch.cat([scores0, scores1], dim=1)
@@ -106,8 +128,8 @@ def search_retrieve(
     """The traversal: widths from ``scfg``, per-row (k, μ, η, β) from ``dyn``
     (host params are broadcast; ``None`` means k = k_max). Result tensors are
     [Q, k_max], each row masked at its own k."""
-    if impl not in ops.IMPLS:
-        raise ValueError(f"impl must be one of {ops.IMPLS}, got {impl!r}")
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     if isinstance(dyn, DynamicParams):
         dyn.validate_for(scfg)
     dev = qb_full.tids.device
@@ -120,6 +142,7 @@ def search_retrieve(
     if variant == "bmp":
         return _retrieve_bmp(index, qb_full, scfg, d, impl)
 
+    bounds_impl = "ref" if impl == "legacy" else impl
     ns, c = index.n_superblocks, index.c
     gamma = min(scfg.gamma, ns)
     budget = min(scfg.resolved_sb_budget(), ns)
@@ -129,14 +152,14 @@ def search_retrieve(
     qdense = scatter_dense(qb_full)
 
     # ---- phase 1: superblock bounds, full sorted candidate list
-    sbmax = ops.sbmax(index.sb_bounds, qb.tids, qb.ws, impl)  # [Q, NS]
+    sbmax = ops.sbmax(index.sb_bounds, qb.tids, qb.ws, bounds_impl)  # [Q, NS]
     top_vals, top_idx = stable_topk(sbmax, budget)
 
     # ---- round 0: seed θ from the guaranteed head of the list
     blk0 = _expand_superblocks(top_idx[:, :g0], c)
     ones = torch.ones_like(blk0, dtype=torch.bool)
-    scores0, pos0 = score_blocks(index, qdense, blk0, ones, scfg.doc_layout, impl)
-    theta = _kth_threshold(scores0, d.k, scfg.k_max)  # [Q]
+    scores0, pos0 = _score_blocks_dispatch(index, qdense, blk0, ones, scfg, impl)
+    theta = _kth_threshold(scores0, d.k, scfg.k_max, legacy=impl == "legacy")  # [Q]
 
     # ---- variant eligibility over ranks [g0, budget)
     rank = torch.arange(budget, device=dev)[None, :]
@@ -150,7 +173,7 @@ def search_retrieve(
         eligible = in_gamma | (top_vals > th / mu)
     else:
         assert index.sb_avg is not None, f"{variant} needs superblock averages in the index"
-        sbavg = ops.sbmax(index.sb_avg, qb.tids, qb.ws, impl)
+        sbavg = ops.sbmax(index.sb_avg, qb.tids, qb.ws, bounds_impl)
         avg_vals = torch.gather(sbavg, 1, top_idx)
         sp_rule = (top_vals > th / mu) | (avg_vals > th / eta)
         eligible = (in_gamma | sp_rule) if variant == "lsp2" else sp_rule
@@ -161,7 +184,7 @@ def search_retrieve(
         eligible = eligible & (rank >= g0)  # round 0 already scored these
 
     # ---- phase 2: block bounds of the surviving superblocks, prune at θ/η
-    blk_bounds = ops.gathered_block_bounds(index.blk_bounds, c, qb.tids, qb.ws, top_idx, eligible, impl)
+    blk_bounds = ops.gathered_block_bounds(index.blk_bounds, c, qb.tids, qb.ws, top_idx, eligible, bounds_impl)
     blk_bounds = torch.where(eligible[:, :, None], blk_bounds, NEG)  # [Q, budget, c]
     blk_keep = blk_bounds > th[:, :, None] / eta[:, :, None]
     flat_bounds = torch.where(blk_keep, blk_bounds, NEG).reshape(blk_bounds.shape[0], -1)
@@ -178,7 +201,7 @@ def search_retrieve(
         blk_mask = bvals > NEG / 2
 
     # ---- phase 3: document scoring, then the canonical merge of both rounds
-    scores1, pos1 = score_blocks(index, qdense, blk_ids, blk_mask, scfg.doc_layout, impl)
+    scores1, pos1 = _score_blocks_dispatch(index, qdense, blk_ids, blk_mask, scfg, impl)
     vals, ids = _merge_rounds(index, scfg, d, scores0, pos0, scores1, pos1)
 
     # ---- accounting: distinct blocks and superblocks only (sp may re-select
@@ -204,20 +227,20 @@ def _retrieve_bmp(
     qb = prune_terms(qb_full, d.beta)
     qdense = scatter_dense(qb_full)
 
-    boundsum = ops.sbmax(index.blk_bounds, qb.tids, qb.ws, impl)  # [Q, NB]
+    boundsum = ops.sbmax(index.blk_bounds, qb.tids, qb.ws, "ref" if impl == "legacy" else impl)  # [Q, NB]
     b0 = min(max(scfg.gamma0 * index.c, scfg.k_max // b + 1), nb)
     budget = resolve_block_budget(scfg, nb, default=4 * scfg.gamma * index.c)
     # one stable sort serves both cuts: each is a prefix of the same order
     vals, idx = stable_topk(boundsum, max(b0, budget))
     i0 = idx[:, :b0]
     ones = torch.ones_like(i0, dtype=torch.bool)
-    scores0, pos0 = score_blocks(index, qdense, i0, ones, scfg.doc_layout, impl)
-    theta = _kth_threshold(scores0, d.k, scfg.k_max)
+    scores0, pos0 = _score_blocks_dispatch(index, qdense, i0, ones, scfg, impl)
+    theta = _kth_threshold(scores0, d.k, scfg.k_max, legacy=impl == "legacy")
 
     vals, idx = vals[:, :budget], idx[:, :budget]
     rank = torch.arange(budget, device=idx.device)[None, :]
     eligible = (vals > theta[:, None] / d.eta[:, None]) & (rank >= b0)
-    scores1, pos1 = score_blocks(index, qdense, idx, eligible, scfg.doc_layout, impl)
+    scores1, pos1 = _score_blocks_dispatch(index, qdense, idx, eligible, scfg, impl)
     tvals, ids = _merge_rounds(index, scfg, d, scores0, pos0, scores1, pos1)
     return RetrievalResult(
         doc_ids=ids,

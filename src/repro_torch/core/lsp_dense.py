@@ -83,15 +83,21 @@ class DenseIndexConfig:
                              f"got c={self.c}, bits={self.bits}")
 
 
-def _quant_minmax(mx: torch.Tensor, mn: torch.Tensor, bits: int, granule: int) -> PackedMinMax:
+def _quant_minmax(mx: torch.Tensor, mn: torch.Tensor, bits: int, granule: int,
+                  scale_zero: tuple[float, float] | None = None) -> PackedMinMax:
     """Per-dimension affine quantization of the float32 [D, N] max/min bound
     rows, max rounded up and min down so the bounds stay valid. The scales fold
-    into the query at search time, the zero point is one q . zero product."""
+    into the query at search time, the zero point is one q . zero product.
+    ``scale_zero`` fixes one (scale, zero) for every dimension instead of each
+    dimension's own range; values outside it clamp to the end levels."""
     levels = (1 << bits) - 1
-    lo = mn.amin(dim=1, keepdim=True)
-    hi = mx.amax(dim=1, keepdim=True)
-    scale = torch.clamp((hi - lo) / levels, min=1e-9)
-    zero = lo
+    if scale_zero is None:
+        lo = mn.amin(dim=1, keepdim=True)
+        hi = mx.amax(dim=1, keepdim=True)
+        scale = torch.clamp((hi - lo) / levels, min=1e-9)
+        zero = lo
+    else:
+        scale, zero = (torch.full((mx.shape[0], 1), v, dtype=torch.float32, device=mx.device) for v in scale_zero)
     qmax = torch.clamp(torch.ceil((mx - zero) / scale - 1e-9), 0, levels).to(torch.uint8)
     qmin = torch.clamp(torch.floor((mn - zero) / scale + 1e-9), 0, levels).to(torch.uint8)
     return PackedMinMax(pack_rows_strided(qmax, bits, granule), pack_rows_strided(qmin, bits, granule),
@@ -110,8 +116,9 @@ def dense_order(cands: torch.Tensor, cfg: DenseIndexConfig) -> torch.Tensor:
 
 
 def build_dense_index(cands: Union[np.ndarray, torch.Tensor], cfg: DenseIndexConfig,
-                      device=None) -> DenseLSPIndex:
-    """Build the dense index of float32 embeddings [n, D] on ``device`` (CUDA by default)."""
+                      device=None, scale_zero: tuple[float, float] | None = None) -> DenseLSPIndex:
+    """Build the dense index of float32 embeddings [n, D] on ``device`` (CUDA
+    by default); ``scale_zero`` fixes the bounds' quantizer (``_quant_minmax``)."""
     device = resolve_device(device)
     if isinstance(cands, torch.Tensor):
         x_in = cands.to(device, torch.float32)
@@ -142,8 +149,8 @@ def build_dense_index(cands: Union[np.ndarray, torch.Tensor], cfg: DenseIndexCon
     cw = c * cfg.bits // 32
     return DenseLSPIndex(
         b=b, c=c, n_cands=n, dim=d, n_blocks=nb, n_superblocks=ns,
-        sb=_quant_minmax(sb_max, sb_min, cfg.bits, SEG_WORDS),
-        blk=_quant_minmax(blk_max, blk_min, cfg.bits, cw),
+        sb=_quant_minmax(sb_max, sb_min, cfg.bits, SEG_WORDS, scale_zero),
+        blk=_quant_minmax(blk_max, blk_min, cfg.bits, cw, scale_zero),
         cands=x.to(torch.bfloat16),
         remap=remap,
     )

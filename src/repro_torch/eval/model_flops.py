@@ -142,8 +142,10 @@ def gnn_flops(arch: ArchConfig, shape: ShapeSpec) -> float:
     return 3.0 * fwd  # training step
 
 
-def model_flops(arch: ArchConfig, shape_name: str) -> float:
-    shape = arch.shapes[shape_name]
+def model_flops(arch: ArchConfig, shape_name: str, shape: ShapeSpec | None = None) -> float:
+    """The model FLOPs of ``arch`` at its shape ``shape_name``, or at ``shape``
+    where given (a cut of it: a smaller batch, one mesh position's share)."""
+    shape = arch.shapes[shape_name] if shape is None else shape
     if arch.family == "lm":
         return lm_flops(arch.lm, shape)
     if arch.family == "recsys":

@@ -127,3 +127,53 @@ def index_to(index: LSPIndex, device) -> LSPIndex:
         return x
 
     return move(index)
+
+
+# ----------------------------------------------------------------- size accounting
+# Byte formulas mirroring paper §4.3 / Table 7. `nnz` is total postings count.
+
+
+def bmp_inv_bytes(nnz: int, n_blocks: int, vocab_per_block) -> int:
+    """Rust nested Vec<Vec<(u32,u8)>>: 24B header per vector + postings (5B each)."""
+    n_vecs = int(vocab_per_block.sum()) + n_blocks  # per (block,term) vec + outer vecs
+    return 24 * n_vecs + 5 * nnz
+
+
+def compact_inv_bytes(nnz: int, n_blocks: int, vocab_per_block) -> int:
+    """b<=256 -> 1B lengths; 65k terms -> 2B term ids; no per-vec capacity/ptr."""
+    n_lists = int(vocab_per_block.sum())
+    return n_lists * (2 + 1) + 2 * nnz + 8 * n_blocks  # tid+len per list, (did,w) 2B
+
+
+def flat_inv_bytes(nnz_padded: int, n_blocks: int) -> int:
+    # int32 tid (we budget 2B logical term ids at 65k vocab) + 1B local did + 1B w
+    return 4 * nnz_padded + 4 * (n_blocks + 1)
+
+
+def fwd_bytes(n_docs_padded: int, t_max: int) -> int:
+    return n_docs_padded * t_max * (4 + 1)  # int32 tid + u8 weight
+
+
+def fwdq_bytes(fq: FwdDocsQ) -> int:
+    n_blocks, b, t = fq.tids.shape
+    return n_blocks * (b * t * (4 + fq.ws.dtype.itemsize) + 4)  # + per-block scale
+
+
+def flatq_bytes(fq: FlatDocsQ) -> int:
+    n_blocks, m = fq.tids.shape
+    b = fq.doc_ends.shape[1]
+    return n_blocks * (m * (4 + fq.ws.dtype.itemsize) + 4 * b + 4)
+
+
+def dense_bounds_bytes(vocab: int, n_units: int, bits: int = 8) -> int:
+    """BMP-Dense: uncompressed dense max-weight matrix."""
+    return vocab * n_units * bits // 8
+
+
+def sparse_bounds_bytes(nnz_block_terms: int) -> int:
+    """BMP-Sparse: (block_id u32, weight u8) per nonzero block-term."""
+    return 5 * nnz_block_terms
+
+
+def packed_bounds_bytes(pb: PackedBounds) -> int:
+    return pb.packed.numel() * 4

@@ -59,3 +59,7 @@ def quantize_bounds_per_row(w: torch.Tensor, bits: int):
     scales = torch.where(row_max > 0, row_max / levels, 1.0)
     q = torch.clamp(torch.ceil(w / scales - 1e-9), 0, levels)
     return q.to(_qdtype(bits)), scales[:, 0]
+
+
+def dequantize(q: torch.Tensor, scale) -> torch.Tensor:
+    return q.to(torch.float32) * scale

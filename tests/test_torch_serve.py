@@ -55,8 +55,8 @@ CPU = torch.device("cpu")
 # The port's public surface: a change to either list is a change of its API.
 API_SURFACE = [
     "ConfigError", "DynamicParams", "RetrievalConfig", "RetrievalEngine", "Retriever", "SearchRequest",
-    "SearchResponse", "StaticConfig", "combine", "get_backend", "list_backends", "recommended_static",
-    "register_backend",
+    "SearchResponse", "StaticConfig", "combine", "get_backend", "list_backends", "recommended",
+    "recommended_static", "register_backend",
 ]
 SERVE_SURFACE = [
     "AdmissionConfig", "AdmissionController", "AdmissionRejected", "Bucket", "BucketLadder", "ChaosConfig",
