@@ -1,0 +1,8 @@
+"""doc_score_fwd_roofline: the least time of the program's doc_score_fwd kernel calls,
+counted from each call's inputs at the card's peaks, over their device
+time, in percent; over its first calls in the traced window."""
+
+
+def read(run):
+    v = run.rooflines.get("doc_score_fwd")
+    return 100.0 * v[0] / v[1] if v and v[1] > 0 else None
