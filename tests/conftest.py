@@ -10,6 +10,7 @@ import pytest
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "cuda: needs a CUDA device; skipped where there is none")
+    config.addinivalue_line("markers", "slow: a long test; informational, nothing deselects it")
 
 
 @pytest.fixture(scope="session")
