@@ -14,7 +14,10 @@ corpus (vocab 30,522) and builds its index on the card with
 requests through ``impl="ref"`` and the ``exact`` backend; answers them again
 under ``doc_layout="flat"``, under lsp2 (sbmax at phase 1 and SBavg) and
 under bmp (sbmax as the BoundSum over all blocks), each kernel path against
-``impl="ref"`` on ids and both counters of every query; serves the same
+``impl="ref"`` on ids and both counters of every query; holds the runner's
+CUDA graphs to the eager traversal (every variant and lsp0 flat, Q 1 and 64,
+three nq buckets, to the bit; one capture a bucket, then replays; a launch's
+kept arguments; kernels a call on both paths; host ms); serves the same
 256 requests through ``Retriever.serve`` (the bucketed engine, warmed on every
 bucket) from 8 client threads against ``search_batch`` (launches counted),
 times closed loops of 1 and 64 client threads (p50, p99, batches per
@@ -161,6 +164,8 @@ L2_ROW_FLOATS = 60_000  # a dense query row this long does not fit in an H100 th
 QDENSE_ARG = {"doc_score_fwd": 2, "doc_score_flat": 3}  # where each doc_score kernel takes its dense query rows
 REPS = 20
 ENGINE_NQ = 64  # the serving engine's widest nq bucket
+GRAPH_WIDTHS = (13, 24, 37)  # nq buckets 16 (padded), 24 (exact), 40 (padded)
+GRAPH_TIMED_CALLS = 30
 ENGINE_TOL = dict(rtol=1e-5, atol=1e-5)  # the same kernels on batches of another shape
 # mutable phase: k_max headroom over k for the tombstone overfetch (k + 48 <= 64), as
 # benchmarks/freshness_suite.py; 1,024 adds (CompactionManager's default max_delta_docs)
@@ -638,6 +643,127 @@ def path_phase(label, cfg, idx, batches, exact_ids, device, core_ops, sites, ker
         f"(kernel path); impl='ref' median {statistics.median(ref_ms):.2f} ms")
     profile_call(f"{label} search_batch ({BATCH} requests)", lambda: retr.search_batch(batches[0]))
     return launches, by_site, captured
+
+
+def _device_ops(fn):
+    """The device operations the profiler sees in one ``fn()``, counted by
+    name (kernels, and copies and sets under ``Memcpy``/``Memset`` names)."""
+    from collections import Counter
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return Counter(e.name[:100] for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def _n_kernels(ops_by_name):
+    return sum(n for name, n in ops_by_name.items() if not name.startswith(("Memcpy", "Memset")))
+
+
+def graphs_phase(idx, cfg, queries, device, core_ops):
+    """The runner's CUDA graphs (``core.graphs``) against the eager traversal
+    on the card: every variant, and lsp0 on the flat layout, at Q 1 and 64
+    and three nq buckets (one exact, two padded), ids, scores, θ and both
+    counters to the bit against ``search_retrieve`` at the bucket's width;
+    one set captured a bucket, replayed after; each kernel's first-call
+    arguments unchanged after ten more calls; the profiler's kernels a call
+    on both paths; host ms a call on both."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.config import DynamicParams, dynamic_args
+    from repro_torch.core.graphs import nq_bucket
+    from repro_torch.core.lsp import make_search_runner, search_retrieve
+    from repro_torch.core.query import QueryBatch, make_query_batch
+
+    def padded(qb, width):
+        pad = width - qb.tids.shape[1]
+        return QueryBatch(torch.nn.functional.pad(qb.tids, (0, pad), value=qb.vocab),
+                          torch.nn.functional.pad(qb.ws, (0, pad)), qb.vocab)
+
+    def same(got, want, what):
+        for name in ("doc_ids", "scores", "theta", "n_superblocks_visited", "n_blocks_scored"):
+            check(torch.equal(getattr(got, name), getattr(want, name)), f"graphs: {what}: {name} differs from eager")
+
+    mixed = [DynamicParams(k=1 + (i * 3) % K, mu=(0.2, 0.5, 0.9)[i % 3], eta=(0.7, 1.0)[i % 2],
+                           beta=(0.33, 0.6, 1.0)[i % 3]) for i in range(BATCH)]
+    for variant, layout in [(v, "fwd") for v in ("lsp0", "lsp1", "lsp2", "sp", "bmp")] + [("lsp0", "flat")]:
+        scfg = dataclasses.replace(cfg, variant=variant, doc_layout=layout)
+        run = make_search_runner(idx, scfg)
+        for q in (1, BATCH):
+            for width in GRAPH_WIDTHS:
+                qb = make_query_batch(queries[:q], VOCAB, nq_max=width, device=device)
+                wide = padded(qb, nq_bucket(width))
+                want = search_retrieve(idx, wide, scfg, dynamic_args(run.defaults, q, scfg.k_max, device))
+                for call in ("capture", "replay", "replay again"):
+                    same(run(qb), want, f"{variant} {layout} Q {q} nq {width} ({call})")
+                if q == BATCH:
+                    want = search_retrieve(idx, wide, scfg, dynamic_args(mixed, q, scfg.k_max, device))
+                    same(run(qb, mixed), want, f"{variant} {layout} Q {q} nq {width} per-row params")
+        sets = 2 * len(GRAPH_WIDTHS)
+        stats = run.graph_stats()
+        log(f"graphs {variant} {layout}: n_traces {run.n_traces()}, graph_stats {stats}")
+        check(run.n_traces() == sets and stats == {"captures": sets, "replays": 2 * sets + len(GRAPH_WIDTHS),
+                                                   "eager": 0}, f"graphs {variant}: one set a bucket, then replays")
+
+    # the arguments a tracer keeps from a kernel's first call stay as they were
+    run = make_search_runner(idx, cfg)
+    qb = make_query_batch(queries[:BATCH], VOCAB, device=device)
+    run(qb)  # capture
+    kept = {}
+    originals = {name: getattr(core_ops, KERNELS[name][0]) for name in ("sbmax", "boundsum_gather", "doc_score_fwd")}
+
+    def keeping(name, fn):
+        def wrapper(*args):
+            if name not in kept:
+                kept[name] = (args, [a.clone() if isinstance(a, torch.Tensor) else a for a in args])
+            return fn(*args)
+        return wrapper
+
+    for name, fn in originals.items():
+        setattr(core_ops, KERNELS[name][0], keeping(name, fn))
+    try:
+        for _ in range(11):
+            run(qb)
+        torch.cuda.synchronize(device)
+    finally:
+        for name, fn in originals.items():
+            setattr(core_ops, KERNELS[name][0], fn)
+    check(sorted(kept) == sorted(originals), f"graphs: kernels launched in the eleven calls {sorted(kept)}")
+    for name, (args, copies) in kept.items():
+        check(all(not isinstance(a, torch.Tensor) or torch.equal(a, c) for a, c in zip(args, copies)),
+              f"graphs: an argument kept from {name}'s first call changed in ten more calls")
+    log(f"graphs: the first call's arguments of {sorted(kept)} unchanged after ten more calls")
+
+    # the profiler sees the kernels a graph launches; host time a call on both paths
+    d = dynamic_args(run.defaults, BATCH, cfg.k_max, device)
+    wide = padded(qb, nq_bucket(qb.tids.shape[1]))
+    paths = {"graphs": lambda: run(qb), "eager": lambda: search_retrieve(idx, wide, cfg, d)}
+    seen = {name: _device_ops(lambda: fn().doc_ids.cpu()) for name, fn in paths.items()}
+    log(f"graphs: kernels (device operations) the profiler sees in one call of {BATCH}: "
+        + ", ".join(f"{name} {_n_kernels(c)} ({sum(c.values())})" for name, c in seen.items()))
+    log(f"  the graph path's device operations beyond the eager path's: {dict(seen['graphs'] - seen['eager'])}; "
+        f"short of them: {dict(seen['eager'] - seen['graphs'])}")
+    missing = {name: n for name, n in (seen["eager"] - seen["graphs"]).items()
+               if not name.startswith(("Memcpy", "Memset"))}
+    check(not missing, f"graphs: the profiler misses kernels a graph launches: {missing}")
+    enqueue, call = {name: [] for name in paths}, {name: [] for name in paths}
+    for _ in range(GRAPH_TIMED_CALLS):
+        for name, fn in paths.items():
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            fn()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize(device)
+            enqueue[name].append((t1 - t0) * 1e3)
+            call[name].append((time.perf_counter() - t0) * 1e3)
+    for name in paths:
+        log(f"graphs: {name} traversal of {BATCH}, host ms a call to return {np.median(enqueue[name]):.3f}, "
+            f"to the device's end {np.median(call[name]):.3f} (medians of {GRAPH_TIMED_CALLS}, interleaved)")
 
 
 def dense_phase(device, core_ops, sites):
@@ -3810,6 +3936,9 @@ def smoke(device) -> int:
             check(by_site[site] > 0, f"sbmax was never launched at {site} on the {variant} path")
             sbmax_launches.setdefault(site, by_site[site])
         captured["sbmax"] += variant_captured["sbmax"]
+
+    # ---- 7b'. the runner's CUDA graphs against the eager traversal
+    graphs_phase(idx, cfg, queries, device, core_ops)
 
     tmp = tempfile.mkdtemp()
     try:

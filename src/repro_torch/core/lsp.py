@@ -28,16 +28,18 @@ last lane of the top-k_max list (the static point k = k_max only).
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.core import ops
 from repro_torch.core.config import Dynamic, DynamicArgs, DynamicParams, StaticConfig, dynamic_args
+from repro_torch.core.graphs import ShapeGraphs, graphs_engage
 from repro_torch.core.query import QueryBatch, prune_terms, scatter_dense
 from repro_torch.core.scoring import NEG, score_blocks, score_positions_fwd
 from repro_torch.core.topk import canonical_topk, stable_topk
-from repro_torch.index.layout import LSPIndex, index_device
+from repro_torch.index.layout import LSPIndex, _tensors, index_device
 
 
 class RetrievalResult(NamedTuple):
@@ -293,20 +295,81 @@ def make_dynamic_runner(fn, scfg: StaticConfig, defaults: DynamicParams, vocab: 
     return run
 
 
+class SearchRunner:
+    """The traversal closed over ``index`` behind the dynamic-runner contract
+    (the counterpart of the JAX package's ``jit_search``): any batch shape and
+    any per-row mix of ``DynamicParams`` through one callable, with
+    ``warmup(shapes)``, ``n_traces()`` and ``graph_stats()``.
+
+    On CUDA through the kernels (``core.graphs.graphs_engage``) each call
+    replays CUDA graphs of the traversal's op chains, one set per (Q, nq
+    bucket), captured on the shape's first call (``warmup`` captures ahead);
+    ``n_traces()`` counts the sets, as JAX counts compiled traces. Elsewhere
+    (the CPU, impl "ref" and "legacy") each call runs ``search_retrieve``
+    eagerly and ``n_traces()`` stays 0."""
+
+    supports_dynamic = True
+
+    def __init__(self, index: LSPIndex, scfg: StaticConfig, impl: str = "auto",
+                 defaults: Optional[DynamicParams] = None):
+        self.static_cfg = scfg
+        self.defaults = (defaults or DynamicParams(k=scfg.k_max)).validate_for(scfg)
+        self.vocab = index.vocab
+        self.device = index_device(index)
+        ops.scoring_operand(index, scfg.doc_layout)
+
+        def traverse(qb: QueryBatch, d: DynamicArgs) -> RetrievalResult:
+            # holds no reference to the runner: a runner dropped frees its graphs at once,
+            # not in a later collection that might fall inside another runner's capture
+            return search_retrieve(index, qb, scfg, d, impl=impl)
+
+        self._traverse = traverse
+        self._graphs = None
+        if graphs_engage(self.device, impl):
+            constants = frozenset(t.untyped_storage().data_ptr() for t in _tensors(index))
+            self._graphs = ShapeGraphs(traverse, self.vocab, self.device, constants)
+        self._eager = 0
+        self._eager_lock = threading.Lock()
+
+    def __call__(self, qb: QueryBatch, dyn: Dynamic = None) -> RetrievalResult:
+        validate_dynamic(dyn, self.static_cfg)
+        dyn = self.defaults if dyn is None else dyn
+        q = qb.tids.shape[0]
+        if self._graphs is None:
+            with self._eager_lock:
+                self._eager += 1
+            return self._traverse(qb, dynamic_args(dyn, q, self.static_cfg.k_max, qb.tids.device))
+        rows = [dyn] * q if isinstance(dyn, DynamicParams) else list(dyn)
+        if len(rows) != q:
+            raise ValueError(f"per-row params: got {len(rows)} for a batch of {q} rows")
+        return self._graphs(qb, rows)
+
+    def warmup(self, shapes) -> None:
+        """Run each (Q, nq) shape once on sentinel queries: on CUDA this
+        builds and loads the kernels and captures the shape's graphs."""
+        for q, nq in shapes:
+            self(QueryBatch(torch.full((q, nq), self.vocab, dtype=torch.int32, device=self.device),
+                            torch.zeros((q, nq), dtype=torch.float32, device=self.device), self.vocab))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def n_traces(self) -> int:
+        return 0 if self._graphs is None else len(self._graphs.sets)
+
+    def graph_stats(self) -> dict:
+        """Calls that captured a graph set, calls that replayed one, and
+        calls that ran the eager traversal."""
+        g = self._graphs
+        return {"captures": 0 if g is None else g.captures, "replays": 0 if g is None else g.replays,
+                "eager": self._eager}
+
+
 def make_search_runner(
     index: LSPIndex,
     scfg: StaticConfig,
     impl: str = "auto",
     defaults: Optional[DynamicParams] = None,
-):
+) -> SearchRunner:
     """The traversal closed over ``index`` behind the dynamic-runner contract
-    (the counterpart of the JAX package's ``jit_search``): any batch shape and
-    any per-row mix of ``DynamicParams`` through one callable."""
-    vocab = index.vocab
-    defaults = (defaults or DynamicParams(k=scfg.k_max)).validate_for(scfg)
-    ops.scoring_operand(index, scfg.doc_layout)
-
-    def fn(tids, ws, d):
-        return search_retrieve(index, QueryBatch(tids, ws, vocab), scfg, d, impl=impl)
-
-    return make_dynamic_runner(fn, scfg, defaults, vocab, index_device(index))
+    (``SearchRunner``)."""
+    return SearchRunner(index, scfg, impl, defaults)
