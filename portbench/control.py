@@ -29,9 +29,9 @@ def main(argv=None) -> int:
     ap.add_argument("--fault", default="")
     args = ap.parse_args(argv)
 
-    from portbench import faults, harness
+    from portbench import harness
 
-    fault = faults.FAULTS[args.fault] if args.fault else None
+    fault = args.fault or None  # by name, so that every rank of a cell on several cards plants it
     harness.configure_process(ROOT)
     for seed in (int(s) for s in args.seeds.split(",") if s):
         t0 = time.perf_counter()

@@ -13,12 +13,23 @@ run's timed path (``harness.run(..., fault=<one of these>)``).
   place of the program's clustering, every later stage sound: what the
   check's recall against exhaustive scoring has to catch.
 
+Those act on rank 0. Of a cell on several ranks (each called on every rank,
+on the others before they follow, and acting where it names):
+
+* ``stale_shard``: rank 1's shard served with its block bounds as they
+  started (zero);
+* ``no_exchange``: every rank's traversal merges its own shard's candidates
+  in place of every rank's, the exchange between cards left out;
+* ``kill_rank``: rank 1 killed at its fifth search, inside the window.
+
 ``python3 portbench/control.py`` reads the control at a cell's own size.
 """
 
 from __future__ import annotations
 
 import gc
+import os
+import signal
 
 import numpy as np
 import torch
@@ -41,6 +52,8 @@ def _wrap_results(ctx, fn):
 
 
 def control(ctx) -> None:
+    if ctx.rank:
+        return
     cfg = ctx.cfg
     ix, q = cfg["index"], cfg["query"]
     corpus = ctx.corpus
@@ -56,6 +69,8 @@ def control(ctx) -> None:
 
 
 def alter_answer(ctx) -> None:
+    if ctx.rank:
+        return
     n_docs = ctx.corpus.doc_ptr.numel() - 1
     inner = ctx.retr.search_batch
 
@@ -69,6 +84,8 @@ def alter_answer(ctx) -> None:
 
 
 def half_batch(ctx) -> None:
+    if ctx.rank:
+        return
     inner = ctx.retr.search_batch
 
     def search_batch(reqs):
@@ -80,11 +97,13 @@ def half_batch(ctx) -> None:
 
 
 def stale_index(ctx) -> None:
+    if ctx.rank:
+        return
     ctx.retr.index.blk_bounds.packed.zero_()
 
 
 def shuffled_order(ctx) -> None:
-    from portbench import harness
+    from portbench.builds import local
     from repro_torch.index import clustering
 
     def random_order(doc_ptr, tids, ws, vocab, b, c, *args, device, **kw):
@@ -101,10 +120,56 @@ def shuffled_order(ctx) -> None:
     real = clustering.block_order
     clustering.block_order = random_order
     try:
-        ctx.retr = harness.build_retriever(ctx.cfg, gen.corpus_to_host(ctx.corpus), ctx.device)
+        ctx.retr = local.build_retriever(ctx.cfg, gen.corpus_to_host(ctx.corpus), ctx.device)
     finally:
         clustering.block_order = real
 
 
+def stale_shard(ctx) -> None:
+    if ctx.rank != 1:
+        return
+    from repro_torch.serve import group
+
+    real = group._open_local
+
+    def open_stale(*args, **kw):
+        local, failed = real(*args, **kw)
+        if local is not None:
+            local.shards[ctx.rank].blk_bounds.packed.zero_()
+        return local, failed
+
+    group._open_local = open_stale
+
+
+def no_exchange(ctx) -> None:
+    from repro_torch.distributed import sharded
+
+    def own_only(t, group=None):
+        return torch.cat([t] * torch.distributed.get_world_size(group), dim=1)
+
+    sharded.all_gather_cat = own_only
+
+
+no_exchange.early = True  # on every rank from the start, so the ranks' exchanges stay in step
+
+
+def kill_rank(ctx) -> None:
+    if ctx.rank != 1:
+        return
+    from repro_torch.distributed.sharded import ShardedRetriever
+
+    real = ShardedRetriever.__call__
+    calls = []
+
+    def call(self, *args, **kw):
+        calls.append(1)
+        if len(calls) == 5:
+            os.kill(os.getpid(), signal.SIGKILL)
+        return real(self, *args, **kw)
+
+    ShardedRetriever.__call__ = call
+
+
 FAULTS = {"control": control, "alter_answer": alter_answer, "half_batch": half_batch, "stale_index": stale_index,
-          "shuffled_order": shuffled_order}
+          "shuffled_order": shuffled_order, "stale_shard": stale_shard, "no_exchange": no_exchange,
+          "kill_rank": kill_rank}

@@ -94,7 +94,29 @@ def _draw(cdf: torch.Tensor, n: int, g: torch.Generator) -> torch.Tensor:
 LANGUAGE_SEED = 0  # the vocabulary's term frequencies and topics: the deployment's, fixed
 
 
-def make_corpus(spec: CorpusSpec, seed: int, device) -> Corpus:
+def shard_range(n_docs: int, shard) -> tuple[int, int]:
+    """The documents [lo, hi) of rank r of P (``shard`` = (r, P)): contiguous
+    cuts of ceil(n_docs / P), the last one shorter; all of them for None."""
+    if shard is None:
+        return 0, n_docs
+    r, p = shard
+    size = -(-n_docs // p)
+    lo = min(n_docs, r * size)
+    return lo, min(n_docs, lo + size)
+
+
+class _Slots(NamedTuple):
+    """Every random draw of one corpus, before a document's repeated terms are
+    merged: what fixes the corpus, whichever documents are kept of it."""
+
+    doc_topic: torch.Tensor  # int64 [n_docs]
+    ptr: torch.Tensor  # int64 [n_docs + 1] slot offsets
+    slot_doc: torch.Tensor  # int64 [slots]
+    tids: torch.Tensor  # int64 [slots]
+    ws: torch.Tensor  # float32 [slots]
+
+
+def _draw_slots(spec: CorpusSpec, seed: int, device) -> _Slots:
     v, n = spec.vocab, spec.n_docs
     lang = generator(LANGUAGE_SEED, 0, device)
     perm = torch.randperm(v, generator=lang, device=device)
@@ -116,9 +138,15 @@ def make_corpus(spec: CorpusSpec, seed: int, device) -> Corpus:
     pick = torch.randint(0, topic_terms.shape[1], (rows.numel(),), generator=g, device=device)
     tids[topical] = topic_terms[rows, pick]
     ws = torch.exp(spec.weight_sigma * torch.randn(nnz, generator=g, device=device))
-    del slot_rank, topical, rows, pick
+    return _Slots(doc_topic, ptr, slot_doc, tids, ws)
 
-    # one (document, term) pair each, keeping its largest weight
+
+def _merge(slot_doc: torch.Tensor, tids: torch.Tensor, ws: torch.Tensor, n: int, v: int):
+    """One (document, term) pair each, keeping its largest weight, for the
+    slots of documents 0..n-1 (``slot_doc``): (doc_ptr, tids, ws). Each
+    document's result depends on its own slots only."""
+    device = tids.device
+    nnz = tids.numel()
     key = slot_doc * v + tids
     order = torch.argsort(-ws, stable=True)
     order = order[torch.argsort(key[order], stable=True)]
@@ -129,12 +157,45 @@ def make_corpus(spec: CorpusSpec, seed: int, device) -> Corpus:
     doc_u = key_u // v
     new_ptr = torch.zeros(n + 1, dtype=torch.int64, device=device)
     new_ptr[1:] = torch.cumsum(torch.bincount(doc_u, minlength=n), 0)
-    return Corpus(new_ptr, (key_u % v).to(torch.int32), ws_u.float().contiguous(), doc_topic, v)
+    return new_ptr, (key_u % v).to(torch.int32), ws_u.float().contiguous()
 
 
-def make_queries(spec: CorpusSpec, corpus: Corpus, n: int, seed: int, salt: int = 2) -> Queries:
-    """``n`` queries of ``corpus``'s topics, on its device, returned on the host."""
+def make_corpus(spec: CorpusSpec, seed: int, device, shard=None) -> Corpus:
+    """The corpus of ``spec`` drawn from ``seed``; with ``shard`` = (r, P),
+    rank r's documents of it (``shard_range``), numbered from 0: the P
+    slices together are the corpus drawn without ``shard``, bit for bit."""
+    s = _draw_slots(spec, seed, device)
+    lo, hi = shard_range(spec.n_docs, shard)
+    if (lo, hi) == (0, spec.n_docs):
+        ptr, tids, ws = _merge(s.slot_doc, s.tids, s.ws, spec.n_docs, spec.vocab)
+        return Corpus(ptr, tids, ws, s.doc_topic, spec.vocab)
+    a, b = int(s.ptr[lo]), int(s.ptr[hi])
+    slot_doc, tids, ws = s.slot_doc[a:b] - lo, s.tids[a:b].clone(), s.ws[a:b].clone()
+    doc_topic = s.doc_topic[lo:hi].clone()
+    del s
+    ptr, tids, ws = _merge(slot_doc, tids, ws, hi - lo, spec.vocab)
+    return Corpus(ptr, tids, ws, doc_topic, spec.vocab)
+
+
+def _documents(spec: CorpusSpec, s: _Slots, docs: torch.Tensor) -> Corpus:
+    """The documents ``docs`` (ascending, distinct) of the corpus whose draws
+    are ``s``, as a corpus numbered 0..len(docs)-1."""
+    keep = torch.isin(s.slot_doc, docs)
+    slot_doc = torch.searchsorted(docs, s.slot_doc[keep])
+    ptr, tids, ws = _merge(slot_doc, s.tids[keep], s.ws[keep], docs.numel(), spec.vocab)
+    return Corpus(ptr, tids, ws, s.doc_topic[docs], spec.vocab)
+
+
+def make_queries(spec: CorpusSpec, corpus: Corpus, n: int, seed: int, salt: int = 2, shard=None) -> Queries:
+    """``n`` queries of ``corpus``'s topics, on its device, returned on the host.
+    With ``shard`` = (r, P), ``corpus`` is rank r's slice and the queries are
+    those of the whole corpus, the same on every rank: their documents are
+    drawn over every slice, and drawn again here from ``seed``."""
     device = corpus.tids.device
+    slots = None
+    if shard_range(spec.n_docs, shard) != (0, spec.n_docs):
+        slots = _draw_slots(spec, seed, device)
+        corpus = corpus._replace(doc_topic=slots.doc_topic)
     g = generator(seed, salt, device)
     v = spec.vocab
     topic = torch.randint(0, spec.n_topics, (n,), generator=g, device=device)
@@ -150,6 +211,10 @@ def make_queries(spec: CorpusSpec, corpus: Corpus, n: int, seed: int, salt: int 
     cnt = counts[topic]
     off = (u * cnt.double()).long().clamp_(max=(cnt - 1).clamp(min=0))
     doc = torch.where(cnt > 0, by_topic[(starts[topic] + off).clamp(max=spec.n_docs - 1)], any_doc)
+    if slots is not None:  # the chosen documents of the whole corpus, drawn again
+        docs, doc = torch.unique(doc, return_inverse=True)
+        corpus = _documents(spec, slots, docs)
+        del slots
     d0 = corpus.doc_ptr[doc]
     dlen = corpus.doc_ptr[doc + 1] - d0
     n_top = torch.minimum(ln // 2, dlen)

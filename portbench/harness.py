@@ -4,15 +4,21 @@ Everything is found by name under this directory:
 
 * the cell ``workloads/<name>.json``: its configuration, its traffic mix,
   its chips and the check's sample size and limits;
-* the configuration ``configs/<name>.json``: corpus, index build, query point;
+* the configuration ``configs/<name>.json``: corpus, index build, query
+  point, and by name its build recipe (``"build"``, ``builds/<name>.py``;
+  ``local`` without one) and its check (``"reference"``,
+  ``reference/<name>.py``; ``lsp`` without one);
 * the traffic mix ``mixes/<name>.json``: a driver (``traffic/<driver>.py``)
   and its parameters;
 * each metric ``metrics/<name>.py``, with ``read(run) -> float | None``; the
   cell reports the metrics that BENCHMARK.json gives it (end-to-end ones with
   ``--trace 0``, per-layer ones with ``--trace 1``).
 
-A later cell, mix or metric is new files and a new entry in BENCHMARK.json;
-nothing here changes.
+A cell on P > 1 chips runs one process a rank (``ranks.py``): rank 0 is the
+calling process, draws its slice of the corpus, builds, drives the traffic
+and prints; the others build their part and follow it (``follow``). A later
+cell, mix, metric, build recipe or check is new files and a new entry in
+BENCHMARK.json; nothing here changes.
 """
 
 from __future__ import annotations
@@ -24,15 +30,14 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 from types import SimpleNamespace
 
-import numpy as np
 import torch
 
-from portbench import gen, work
-from portbench.reference import lsp as ref_lsp
+from portbench import gen, ranks, work
 
 HERE = Path(__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")  # top-level module names, compared whole
@@ -84,6 +89,16 @@ class Bench:
     def driver(self, name: str):
         return load_module(self.dir / "traffic" / f"{name}.py", f"portbench_traffic_{name}")
 
+    def build(self, cfg: dict):
+        """The configuration's build recipe (``builds/<name>.py``)."""
+        name = cfg.get("build", "local")
+        return load_module(self.dir / "builds" / f"{name}.py", "portbench_build_" + _ident(name))
+
+    def reference(self, cfg: dict):
+        """The configuration's check (``reference/<name>.py``)."""
+        name = cfg.get("reference", "lsp")
+        return load_module(self.dir / "reference" / f"{name}.py", "portbench_reference_" + _ident(name))
+
     def metrics(self, cell: str, trace: bool) -> list[dict]:
         """The cell's end-to-end metrics (trace off) or per-layer ones (on)."""
         group = self.spec["per_layer"] if trace else self.spec["end_to_end"]
@@ -91,7 +106,11 @@ class Bench:
 
     def reader(self, metric: str):
         path = self.dir / "metrics" / f"{metric}.py"
-        return load_module(path, "portbench_metric_" + metric.replace(".", "_").replace("-", "_"))
+        return load_module(path, "portbench_metric_" + _ident(metric))
+
+
+def _ident(name: str) -> str:
+    return name.replace(".", "_").replace("-", "_")
 
 
 def forbidden_modules() -> list[str]:
@@ -109,67 +128,9 @@ def configure_process(root: Path) -> None:
     torch.set_num_threads(1)
 
 
-def build_retriever(cfg: dict, corpus_host, device):
-    """The program under test: ``Retriever.build`` at the configuration's
-    index build and query point."""
-    from repro_torch.api import Retriever
-    from repro_torch.core.config import DynamicParams, StaticConfig
-    from repro_torch.index.builder import IndexBuildConfig
-
-    ix, q = cfg["index"], cfg["query"]
-    build_cfg = IndexBuildConfig(b=ix["b"], c=ix["c"], bound_bits=ix["bound_bits"], doc_bits=ix["doc_bits"])
-    scfg = StaticConfig(variant=q["variant"], gamma=q["gamma"], gamma0=q["gamma0"], k_max=q["k"])
-    params = DynamicParams(k=q["k"], mu=q["mu"], eta=q["eta"], beta=q["beta"])
-    return Retriever.build(corpus_host, scfg, build_cfg=build_cfg, params=params, device=device)
-
-
-def port_leaves(index) -> dict:
-    """The leaves of the program's index that the traversal reads, as plain
-    tensors: what the check judges."""
-    out = {"remap": index.doc_remap, "fwdq_tids": index.docs_fwdq.tids, "fwdq_ws": index.docs_fwdq.ws,
-           "fwdq_scales": index.docs_fwdq.scales}
-    for name, pb in (("blk", index.blk_bounds), ("sb", index.sb_bounds)):
-        out.update({f"{name}_words": pb.packed, f"{name}_scale": pb.scale, f"{name}_bits": pb.bits,
-                    f"{name}_granule": pb.granule_words})
-    return out
-
-
 def _sync(device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def check(cell: dict, cfg: dict, corpus, leaves: dict, queries: list, responses: list, seed: int) -> dict:
-    """The compared numbers of a run: the program's index against the
-    reference's derivation, and a sample of its responses (``responses[i]``:
-    ids and scores served for ``queries[i]``) against the reference's
-    traversal and against exhaustive scoring."""
-    ix, q = cfg["index"], cfg["query"]
-    k = q["k"]
-    order_bad = ref_lsp.order_mismatches(leaves["remap"], corpus.doc_ptr.numel() - 1, ix["b"], ix["c"])
-    if order_bad:  # nothing else can be laid out against a broken order
-        return {"index_mismatches": order_bad, "order_violations": 0, "id_score_err": 1.0, "ids_differ": 1.0,
-                "recall_shortfall": 1.0}
-    rng = np.random.default_rng(gen.stream(seed, 9))
-    extra = rng.choice(corpus.vocab, size=min(corpus.vocab, cell["check"]["extra_rows"]), replace=False)
-    rows = torch.from_numpy(np.unique(np.concatenate([extra] + [t for t, _ in queries]).astype(np.int64)))
-    ref = ref_lsp.derive(corpus.doc_ptr, corpus.tids, corpus.ws, corpus.vocab, leaves["remap"], ix["b"], ix["c"],
-                         ix["bound_bits"], ix["doc_bits"], rows)
-    nums = {"index_mismatches": ref_lsp.index_mismatches(ref, leaves)}
-    ref_ids, ref_scores = ref_lsp.search(ref, queries, k=k, gamma=q["gamma"], gamma0=q["gamma0"],
-                                         beta=q["beta"], eta=q["eta"])
-    got_ids = torch.full((len(responses), k), -1, dtype=torch.int64)
-    got_scores = torch.full((len(responses), k), ref_lsp.NEG, dtype=torch.float32)
-    for i, (ids, scores) in enumerate(responses):
-        got_ids[i, : len(ids)] = torch.from_numpy(np.asarray(ids, np.int64))
-        got_scores[i, : len(scores)] = torch.from_numpy(np.asarray(scores, np.float32))
-    rescored = ref_lsp.score_ids(ref, queries, got_ids)
-    nums.update(ref_lsp.compare(got_ids, got_scores, ref_ids, ref_scores, rescored))
-    oracle = ref_lsp.exhaustive_topk(ref, corpus.doc_ptr, corpus.tids, corpus.ws, ix["doc_bits"], queries, k)
-    nums["recall_shortfall"] = ref_lsp.recall_shortfall(got_ids, oracle)
-    log(f"recall@{k} against exhaustive scoring of the same quantized documents, {len(queries)} sampled "
-        f"queries: {1.0 - nums['recall_shortfall']:.6f}")
-    return nums
 
 
 class GcPauses:
@@ -213,63 +174,93 @@ def card_power() -> str:
     try:
         out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                              capture_output=True, text=True, timeout=20)
-        return out.stdout.strip() or "not read"
+        return "; ".join(out.stdout.split("\n")).strip("; ") or "not read"
     except (OSError, subprocess.SubprocessError):
         return "not read"
 
 
-def _setup(bench: Bench, workload: str, seed: int, seconds: float, device, fault, t_start: float):
-    """Everything before the window: the corpus drawn on the device, the
-    program's index build, the traffic driver's queries and warm-up. Returns the
-    run's namespace and ``setup_s``."""
+def _peak(device) -> int:
+    return torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+
+
+def _context(bench: Bench, workload: str, seed: int, seconds: float, group: ranks.Group):
+    """What every rank sets up first: the cell's files, the CUDA context,
+    and the rank's slice of the corpus drawn on its device."""
     import repro_torch.api  # noqa: F401  (the program under test: a checkout without it fails here)
 
     cell = bench.cell(workload)
     cfg = bench.config(cell["config"])
     mix = bench.mix(cell["traffic"])
-    driver = bench.driver(mix["driver"])
+    device = group.device
     if device.type == "cuda":
         torch.cuda.set_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-
-    stages = [("imports and the CUDA context", time.perf_counter())]
+    group.stage("imports and the CUDA context")
     spec = gen.CorpusSpec.from_config(cfg)
-    corpus = gen.make_corpus(spec, seed, device)
+    shard = (group.rank, group.size) if group.size > 1 else None
+    corpus = gen.make_corpus(spec, seed, device, shard=shard)
     host = gen.corpus_to_host(corpus)
-    stages.append(("the corpus on the device and its host copy", time.perf_counter()))
-    retr = build_retriever(cfg, host, device)
-    _sync(device)
-    stages.append(("Retriever.build", time.perf_counter()))
-    ctx = SimpleNamespace(cell=cell, cfg=cfg, mix=mix, driver=driver, spec=spec, corpus=corpus, retr=retr,
-                          device=device, seed=seed, seconds=seconds)
-    driver.prepare(ctx)
-    if fault is not None:
-        fault(ctx)
-    _sync(device)
-    settle()
-    stages.append(("queries and warm-up", time.perf_counter()))
+    group.stage("the corpus on the device and its host copy")
+    return SimpleNamespace(cell=cell, cfg=cfg, mix=mix, spec=spec, corpus=corpus, host=host, device=device,
+                           seed=seed, seconds=seconds, rank=group.rank, shard=shard, build=bench.build(cfg),
+                           reference=bench.reference(cfg))
+
+
+def _log_stages(stages, t_start: float) -> None:
     prev = t_start
     for name, t in stages:
         log(f"set-up: {name} {t - prev:.3f} s")
         prev = t
+
+
+def _setup(bench: Bench, workload: str, seed: int, seconds: float, fault, t_start: float, group: ranks.Group):
+    """Rank 0's set-up, everything before the window: the corpus drawn on the
+    device, the build, the traffic driver's queries and warm-up. Returns the
+    run's namespace and ``setup_s``."""
+    ctx = _context(bench, workload, seed, seconds, group)
+    ctx.driver = bench.driver(ctx.mix["driver"])
+    early = getattr(fault, "early", False)
+    if early:
+        fault(ctx)
+    ctx.retr = ctx.build.build(ctx, group)
+    if not group.is_built:
+        raise RuntimeError(f"the build recipe {ctx.cfg.get('build', 'local')!r} never called group.built()")
+    if group.ranks is not None:
+        group.ranks.end()
+    del ctx.host
+    _sync(ctx.device)
+    with group.waiting("the traffic's queries and warm-up", 2 * ranks.WAIT_S):
+        ctx.driver.prepare(ctx)
+    if fault is not None and not early:
+        fault(ctx)
+    _sync(ctx.device)
+    settle()
+    group.stage("queries and warm-up")
+    _log_stages(group.stages, t_start)
     return ctx, time.perf_counter() - t_start
 
 
-def _measure(ctx, trace: bool):
+def _measure(ctx, trace: bool, group: ranks.Group):
     """The window, under the profiler when ``trace``: (the traffic driver's record,
-    the trace's reduction or None, the kernels' rooflines)."""
+    the trace's reduction or None, the kernels' rooflines). The other ranks
+    mark the window's edges on their traces when rank 0 does."""
     from repro_torch.core import ops as core_ops
 
     from portbench import trace as tr
 
     if not trace:
         return ctx.driver.window(ctx), None, {}
+    edges = group.store is not None
     calls = tr.OpCalls(core_ops)
     with tr.Tracer() as tracer:
         tracer.mark()
+        if edges:
+            group.store.set("window_open", "1")
         with calls:
             rec = ctx.driver.window(ctx)
+        if edges:
+            group.store.set("window_closed", "1")
         tracer.mark()
     events = tracer.events()
     reduced = tr.reduce(events)
@@ -279,22 +270,80 @@ def _measure(ctx, trace: bool):
     return rec, reduced, (tr.op_rooflines(calls, reduced["events"]) if reduced else {})
 
 
+def _fault(fault):
+    """A fault passed by name (``faults.FAULTS``) or as a function."""
+    if isinstance(fault, str):
+        from portbench import faults
+
+        return faults.FAULTS[fault]
+    return fault
+
+
 def run(workload: str, seed: int, seconds: float, trace: bool, *, root: Path, device=None,
-        bench_dir: Path = HERE, t_start: float | None = None, fault=None, check_modules: bool = True) -> dict:
+        bench_dir: Path = HERE, t_start: float | None = None, fault=None, check_modules: bool = True,
+        hard_exit: bool = False) -> dict:
     """One run; returns the result line's object. ``device`` None means the
-    first CUDA device. ``fault`` (tests, ``control.py``) is called with the
-    run's namespace after set-up, to break the timed path underneath."""
+    first CUDA device (rank r of a cell on P > 1 chips takes device r of the
+    same kind). ``fault`` (tests, ``control.py``), a function or the name of
+    one in ``faults.FAULTS`` (a name where the cell has P > 1 ranks), is
+    called with a rank's namespace: on rank 0 after set-up (before the build
+    where it is marked ``early``), on the others before they build and
+    follow, to break the timed path underneath. ``hard_exit``
+    (the command) ends the process at a fault of another rank."""
     t_start = time.perf_counter() if t_start is None else t_start
     bench = Bench(root, bench_dir)
+    size = bench.cell(workload)["chips"]
     device = torch.device("cuda", 0) if device is None else torch.device(device)
-    ctx, setup_s = _setup(bench, workload, seed, seconds, device, fault, t_start)
+    if size == 1:
+        return _lead(bench, workload, seed, seconds, trace, _fault(fault), t_start, check_modules,
+                     ranks.Group(0, 1, device))
+    if fault is not None and not isinstance(fault, str):
+        raise ValueError("a run on several ranks takes its fault by name (faults.FAULTS)")
+    argv = ["--workload", workload, "--seed", str(seed), "--seconds", repr(float(seconds)), "--trace",
+            str(int(trace)), "--root", str(root), "--bench-dir", str(bench_dir), "--device", device.type]
+    watch = ranks.Ranks(size, argv + (["--fault", fault] if fault else []), hard=hard_exit)
+    try:
+        group = ranks.join(0, size, device, watch.store_path, ranks=watch)
+        group.stage("the other ranks started and the process group joined")
+        return _lead(bench, workload, seed, seconds, trace, _fault(fault), t_start, check_modules, group)
+    except Exception as exc:
+        if watch.failed is not None:
+            raise RuntimeError(watch.failed) from exc
+        raise
+    finally:
+        watch.stop()
+        if not hard_exit:  # the command's process ends here: no teardown that could wait on a rank
+            ranks.leave()
+
+
+def _lead(bench: Bench, workload: str, seed: int, seconds: float, trace: bool, fault, t_start: float,
+          check_modules: bool, group: ranks.Group) -> dict:
+    """Rank 0: set-up, the window, the readings of every rank, the check, and
+    the result line's object."""
+    device = group.device
+    ctx, setup_s = _setup(bench, workload, seed, seconds, fault, t_start, group)
     pauses = GcPauses()
     gc.callbacks.append(pauses)
-    rec, reduced, rooflines = _measure(ctx, trace)
+    with group.waiting("the window", seconds + ranks.WAIT_S):
+        rec, reduced, rooflines = _measure(ctx, trace, group)
     gc.callbacks.remove(pauses)
-    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+    peak = _peak(device)
 
-    run_ns = SimpleNamespace(setup_s=setup_s, rec=rec, trace=reduced, rooflines=rooflines)
+    # what every rank served is read, then freed: the check runs once the peak is read
+    gc.unfreeze()
+    leaves = ctx.build.leaves(ctx, group)
+    ctx.driver.stop(ctx)
+    if hasattr(ctx.build, "close"):
+        with group.waiting("closing the other ranks"):
+            ctx.build.close(ctx, group)
+    del ctx.retr
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    with group.waiting("every rank's readings"):
+        readings = group.gather({"peak": peak, "trace": reduced, "stages": group.stages})
+
+    run_ns = SimpleNamespace(setup_s=setup_s, rec=rec, trace=reduced, traces=[r["trace"] for r in readings],
+                             rooflines=rooflines)
     metrics = {}
     for m in bench.metrics(workload, trace):
         value = bench.reader(m["name"]).read(run_ns)
@@ -306,37 +355,107 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, root: Path, de
         f"{work.HBM_BYTES_PER_S / 1e12:.2f} TB/s and {work.FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s float32")
     for line in rec.notes + [pauses.summary()]:
         log(line)
+    for r, got in enumerate(readings[1:], 1):
+        t = got["trace"]
+        log(f"rank {r}: memory peak {got['peak']} bytes; set-up " + ", ".join(
+            f"{name} {t1 - t0:.3f} s" for (name, t1), (_, t0) in zip(got["stages"][1:], got["stages"]))
+            + (f"; traced window {t['window_s']:.3f} s, busy {t['busy_s']:.3f} s" if t else ""))
 
-    # the check, once the window has closed, the peak is read and the program's state is freed
-    gc.unfreeze()
-    leaves = port_leaves(ctx.retr.index)
-    ctx.driver.stop(ctx)
-    del ctx.retr
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
     t_check = time.perf_counter()
-    nums = check(ctx.cell, ctx.cfg, ctx.corpus, leaves, rec.sample_queries, rec.sample_responses, seed)
+    nums = ctx.reference.check(ctx.cell, ctx.cfg, ctx.corpus, leaves, rec.sample_queries, rec.sample_responses,
+                               seed, group=group)
     correct, shown = judge(nums, ctx.cell["check"]["limits"])
     for name in nums.keys() - shown.keys():
         log(f"{name} = {nums[name]!r} (not compared in this cell)")
     log(f"check: {len(rec.sample_queries)} sampled responses and the index, in "
         f"{time.perf_counter() - t_check:.1f} s")
+    with group.waiting("every rank's loaded modules"):
+        loaded = group.gather(forbidden_modules())
+    group.finish()
 
     # an answer that never came is for the check too
     out = {"correct": bool(correct) and rec.answered > 0 and rec.failed == 0, "attempted": int(rec.attempted),
            "failed": int(rec.failed), "metrics": metrics,
            "device": {"platform": "gpu" if device.type == "cuda" else "cpu",
                       "kind": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
-                      "count": 1, "memory_peak_bytes": int(peak)}}
+                      "count": group.size, "memory_peak_bytes": int(max(r["peak"] for r in readings))}}
     if reduced:
         out["device"]["busy_s"] = reduced["busy_s"]
         out["device"]["window_s"] = reduced["window_s"]
         out["breakdown"] = {"device_ops": reduced["device_ops"], "idle_gaps": reduced["idle_gaps"]}
-    if check_modules:
-        bad = forbidden_modules()
-        if bad:
-            raise RuntimeError(f"modules of JAX or the JAX package are loaded: {bad}")
+    bad = {r: mods for r, mods in enumerate(loaded) if mods and (r or check_modules)}
+    if bad:
+        raise RuntimeError(f"modules of JAX or the JAX package are loaded: {bad} (by rank)")
     out["checks"] = shown
     for name, v in shown.items():
         log(f"check {name} = {v['value']!r} (limit {v['limit']!r})")
     return out
+
+
+def _follow_trace(group: ranks.Group):
+    """The device trace of another rank, from the barrier after every
+    rank's build until it stops following, with markers where rank 0 opens
+    and closes its window."""
+    from datetime import timedelta
+
+    from portbench import trace as tr
+
+    tracer = tr.Tracer()
+    tracer.__enter__()
+
+    def edges():
+        torch.cuda.set_device(group.device)
+        for key in ("window_open", "window_closed"):
+            try:
+                group.store.wait([key], timedelta(seconds=ranks.FOLLOW_S))
+            except RuntimeError:
+                return
+            tracer.mark()
+
+    threading.Thread(target=edges, name="portbench-edges", daemon=True).start()
+    return tracer
+
+
+def follow(workload: str, seed: int, seconds: float, trace: bool, *, root: Path, bench_dir: Path,
+           group: ranks.Group, fault=None, t_start: float) -> None:
+    """A rank other than 0: its slice of the corpus, its part of the build,
+    serving rank 0 until it closes (the recipe's ``follow``), then its
+    readings and its part of the check."""
+    bench = Bench(root, bench_dir)
+    ctx = _context(bench, workload, seed, seconds, group)
+    if fault is not None:
+        _fault(fault)(ctx)
+    tracer = []
+
+    def after_built():
+        del ctx.host
+        settle()
+        if trace and group.device.type == "cuda":
+            tracer.append(_follow_trace(group))
+
+    group.after_built = after_built
+    ctx.build.follow(ctx, group)
+    reduced = None
+    if tracer:
+        tracer[0].__exit__(None, None, None)
+        reduced = _reduce_follower(tracer[0].events())
+    peak = _peak(group.device)
+    gc.unfreeze()
+    leaves = ctx.build.leaves(ctx, group)
+    del ctx.retr
+    if group.device.type == "cuda":
+        torch.cuda.empty_cache()
+    group.gather({"peak": peak, "trace": reduced, "stages": [("process start", t_start)] + group.stages})
+    ctx.reference.check(ctx.cell, ctx.cfg, ctx.corpus, leaves, [], [], seed, group=group)
+    group.gather(forbidden_modules())
+    group.finish()
+
+
+def _reduce_follower(events):
+    """A follower's trace reduced, without its list of device records."""
+    from portbench import trace as tr
+
+    reduced = tr.reduce(events)
+    if reduced is not None:
+        reduced.pop("events")
+    return reduced

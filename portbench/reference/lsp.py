@@ -1,7 +1,9 @@
-"""Plain PyTorch reference of the benchmark's check.
+"""Plain PyTorch reference of the benchmark's check (``check``), for a cell
+whose program serves one index on one card.
 
-It imports torch and numpy only. From the generated corpus and queries it
-works out again what the program derived and produced:
+It imports torch, numpy and the benchmark's generator, nothing of the
+program. From the generated corpus and queries it works out again what the
+program derived and produced:
 
 * the quantized index the traversal reads: per-term block and superblock
   maximum weights rounded up to ``bound_bits`` levels of a per-row scale,
@@ -29,11 +31,14 @@ configuration's; bfloat16 is the control, the nearest precision below it.
 
 from __future__ import annotations
 
+import sys
 import warnings
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from portbench import gen
 
 NEG = -1e30
 
@@ -103,8 +108,8 @@ def derive(doc_ptr, tids, ws, vocab: int, remap: torch.Tensor, b: int, c: int, b
     n_pad = remap.numel()
     n_blocks, n_sb = n_pad // b, n_pad // (b * c)
     pos_of = torch.empty(n_docs, dtype=torch.int64, device=dev)
-    head = remap[:n_docs]
-    pos_of[head] = torch.arange(n_docs, device=dev)
+    real = remap < n_docs  # padding positions hold ``n_docs``: at the tail, or at each shard's tail
+    pos_of[remap[real]] = torch.nonzero(real)[:, 0]
     lens = doc_ptr[1:] - doc_ptr[:-1]
     doc_of = torch.repeat_interleave(torch.arange(n_docs, device=dev), lens)
     post_pos = pos_of[doc_of]
@@ -378,3 +383,62 @@ def compare(got_ids, got_scores, ref_ids, ref_scores, got_rescored) -> dict:
         n_all += len(gs) + len(rs)
     return {"order_violations": violations, "id_score_err": id_score_err,
             "ids_differ": n_diff / n_all if n_all else 0.0}
+
+
+# the responses' numbers where the program's document order is broken: nothing can be laid out against it
+UNJUDGED = {"order_violations": 0, "id_score_err": 1.0, "ids_differ": 1.0, "recall_shortfall": 1.0}
+
+
+def log(msg: str) -> None:
+    print(msg, file=sys.stderr, flush=True)
+
+
+def check(cell: dict, cfg: dict, corpus, leaves: dict, queries: list, responses: list, seed: int,
+          group=None) -> dict:
+    """The compared numbers of a run: the program's index against the
+    reference's derivation, and a sample of its responses (``responses[i]``:
+    ids and scores served for ``queries[i]``) against the reference's
+    traversal and against exhaustive scoring. One index on one card: a cell
+    on several cards names a reference that judges shards (``lsp_shards``)."""
+    if group is not None and group.size > 1:
+        raise ValueError("reference lsp judges one index on one card; a cell on several names lsp_shards")
+    ix = cfg["index"]
+    order_bad = order_mismatches(leaves["remap"], corpus.doc_ptr.numel() - 1, ix["b"], ix["c"])
+    if order_bad:  # nothing else can be laid out against a broken order
+        return dict(UNJUDGED, index_mismatches=order_bad)
+    rows = check_rows(cell, corpus.vocab, queries, seed)
+    ref = derive(corpus.doc_ptr, corpus.tids, corpus.ws, corpus.vocab, leaves["remap"], ix["b"], ix["c"],
+                 ix["bound_bits"], ix["doc_bits"], rows)
+    nums = {"index_mismatches": index_mismatches(ref, leaves)}
+    nums.update(judge_responses(ref, cfg, corpus, queries, responses))
+    return nums
+
+
+def check_rows(cell: dict, vocab: int, queries: list, seed: int) -> torch.Tensor:
+    """The term rows whose bounds the check derives: ``check.extra_rows``
+    random terms drawn from the seed, and every sampled query's terms."""
+    rng = np.random.default_rng(gen.stream(seed, 9))
+    extra = rng.choice(vocab, size=min(vocab, cell["check"]["extra_rows"]), replace=False)
+    return torch.from_numpy(np.unique(np.concatenate([extra] + [t for t, _ in queries]).astype(np.int64)))
+
+
+def judge_responses(ref: RefIndex, cfg: dict, corpus, queries: list, responses: list) -> dict:
+    """``order_violations``, ``id_score_err`` and ``ids_differ`` of the
+    sampled responses against the reference's traversal of ``ref``, and
+    ``recall_shortfall`` against exhaustive scoring of ``corpus``."""
+    ix, q = cfg["index"], cfg["query"]
+    k = q["k"]
+    ref_ids, ref_scores = search(ref, queries, k=k, gamma=q["gamma"], gamma0=q["gamma0"], beta=q["beta"],
+                                 eta=q["eta"])
+    got_ids = torch.full((len(responses), k), -1, dtype=torch.int64)
+    got_scores = torch.full((len(responses), k), NEG, dtype=torch.float32)
+    for i, (ids, scores) in enumerate(responses):
+        got_ids[i, : len(ids)] = torch.from_numpy(np.asarray(ids, np.int64))
+        got_scores[i, : len(scores)] = torch.from_numpy(np.asarray(scores, np.float32))
+    rescored = score_ids(ref, queries, got_ids)
+    nums = compare(got_ids, got_scores, ref_ids, ref_scores, rescored)
+    oracle = exhaustive_topk(ref, corpus.doc_ptr, corpus.tids, corpus.ws, ix["doc_bits"], queries, k)
+    nums["recall_shortfall"] = recall_shortfall(got_ids, oracle)
+    log(f"recall@{k} against exhaustive scoring of the same quantized documents, {len(queries)} sampled "
+        f"queries: {1.0 - nums['recall_shortfall']:.6f}")
+    return nums

@@ -5,7 +5,9 @@
 from the root of a checkout. Prints one JSON object as the last line of
 standard output, and each number the check compared beside its limit as the
 last lines of standard error. Exits non-zero, printing no result, without
-enough CUDA devices for the cell, or if JAX or the JAX package is loaded.
+enough CUDA devices for the cell, if JAX or the JAX package is loaded on any
+rank, or if a rank of a cell on several cards fails, dies or stops
+answering (``ranks.py``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ T_START = time.perf_counter()
 
 import argparse  # noqa: E402
 import json  # noqa: E402
+import os  # noqa: E402
+import signal  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
 
@@ -42,12 +46,21 @@ def main(argv=None) -> int:
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0} available", file=sys.stderr)
         return 2
     harness.configure_process(ROOT)
+    several = cell["chips"] > 1
+    if several:  # Ctrl-C ends this process at once; the other ranks end with it
+        signal.signal(signal.SIGINT, signal.SIG_DFL)
     try:
-        out = harness.run(args.workload, args.seed, args.seconds, bool(args.trace), root=ROOT, t_start=T_START)
+        out = harness.run(args.workload, args.seed, args.seconds, bool(args.trace), root=ROOT, t_start=T_START,
+                          hard_exit=several)
     except RuntimeError as exc:
-        print(f"run failed: {exc}", file=sys.stderr)
+        print(f"run failed: {exc}", file=sys.stderr, flush=True)
+        if several:
+            os._exit(1)
         return 1
     print(json.dumps(out), flush=True)
+    if several:  # no teardown of the process groups that could wait on a rank
+        sys.stderr.flush()
+        os._exit(0)
     return 0
 
 

@@ -116,15 +116,22 @@ def _imports(path: Path) -> set[str]:
             out.update(a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
             out.add(node.module)
+            out.update(f"{node.module}.{a.name}" for a in node.names)
     return out
 
 
 @pytest.mark.parametrize("path", sorted(HERE.rglob("*.py")), ids=lambda p: str(p.relative_to(HERE)))
 def test_import_rule(path):
-    tops = {m.split(".")[0] for m in _imports(path)}
+    """Nothing imports JAX or the JAX package; a reference imports torch,
+    numpy and the standard library, and of the benchmark its generator and
+    the other references: nothing of the program or of the harness."""
+    mods = _imports(path)
+    tops = {m.split(".")[0] for m in mods}
     assert not tops & FORBIDDEN, f"{path} imports {tops & FORBIDDEN}"
     if "reference" in path.relative_to(HERE).parts:
-        assert tops <= {"__future__", "typing", "warnings", "numpy", "torch", "math"}, tops
+        assert tops <= {"__future__", "typing", "warnings", "numpy", "torch", "math", "sys", "portbench"}, tops
+        ours = {m for m in mods if m.startswith("portbench.")}
+        assert all(m == "portbench.gen" or m.startswith("portbench.reference") for m in ours), ours
 
 
 def test_top_level_names_compared_whole():
@@ -135,8 +142,10 @@ def test_top_level_names_compared_whole():
 
 
 def test_cell_added_as_files_only(tiny_bench, tmp_path):
-    """A later cell, mix and metric are new files and new entries: nothing
-    that exists is edited, and the run reports the new metric."""
+    """A later cell, mix, metric, configuration, build recipe and check are
+    new files and new entries: nothing that exists is edited, the run
+    reports the new metric, and the configuration's build and check are
+    found by name."""
     from portbench import harness
     from portbench.tiny import TINY_SEED
 
@@ -150,12 +159,31 @@ def test_cell_added_as_files_only(tiny_bench, tmp_path):
     cell.update(name="k1000-bulk32", traffic="bulk-32")
     (nb / "workloads" / "k1000-bulk32.json").write_text(json.dumps(cell))
     (nb / "metrics" / "calls_per_s.py").write_text("def read(run):\n    return run.rec.calls / run.rec.window_s\n")
+    (nb / "builds" / "marked.py").write_text(
+        "from portbench.builds.local import build as _build, follow, leaves\n"
+        "def build(ctx, group):\n    ctx.cfg['built_by'] = 'marked'\n    return _build(ctx, group)\n")
+    (nb / "reference" / "marked.py").write_text(
+        "from portbench.reference import lsp\n"
+        "def check(cell, cfg, corpus, leaves, queries, responses, seed, group=None):\n"
+        "    nums = lsp.check(cell, cfg, corpus, leaves, queries, responses, seed, group)\n"
+        "    return dict(nums, unmarked_build=int(cfg.get('built_by') != 'marked'))\n")
+    config = json.loads((nb / "configs" / "msmarco-splade-k1000.json").read_text())
+    config.update(name="k1000-marked", build="marked", reference="marked")
+    (nb / "configs" / "k1000-marked.json").write_text(json.dumps(config))
+    cell.update(name="k1000-marked", config="k1000-marked", traffic="bulk-64")
+    cell["check"]["limits"]["unmarked_build"] = 0
+    (nb / "workloads" / "k1000-marked.json").write_text(json.dumps(cell))
     spec = json.loads((new_root / "BENCHMARK.json").read_text())
     spec["workloads"].append({"name": "k1000-bulk32", "config": "msmarco-splade-k1000", "traffic": "bulk-32",
                               "chips": 1, "why": "a later cell"})
+    spec["workloads"].append({"name": "k1000-marked", "config": "k1000-marked", "traffic": "bulk-64",
+                              "chips": 1, "why": "a configuration with its own build and check"})
     spec["end_to_end"].append({"name": "calls_per_s", "unit": "calls/s", "better": "higher", "bound": 0.05,
                                "source": "host_clock", "workloads": ["k1000-bulk32"]})
     (new_root / "BENCHMARK.json").write_text(json.dumps(spec))
     out = harness.run("k1000-bulk32", TINY_SEED, 0.5, False, root=new_root, device="cpu", bench_dir=nb,
                       check_modules=False)
     assert out["correct"] and set(out["metrics"]) == {"calls_per_s", "setup_s"}
+    out = harness.run("k1000-marked", TINY_SEED, 0.3, False, root=new_root, device="cpu", bench_dir=nb,
+                      check_modules=False)
+    assert out["correct"] and out["checks"]["unmarked_build"]["value"] == 0, out["checks"]

@@ -274,3 +274,50 @@ def test_same_seed_same_arrays():
     assert not (a.tids.numel() == c.tids.numel() and torch.equal(a.tids, c.tids))
     qa, qb = gen.make_queries(spec, a, 50, 9), gen.make_queries(spec, b, 50, 9)
     assert np.array_equal(qa.tids, qb.tids) and np.array_equal(qa.ws, qb.ws)
+
+
+# sha256 (first 16 hex digits) of the corpus (doc_ptr, tids, ws, doc_topic) and of
+# 200 queries (tids, ws, lens) that the generator drew before it could draw a slice
+UNSHARDED = {2**31 + 17: ("024a76a94df6493e", "52ceb4ddb57c92ad"), 5: ("a992abb67c7dab57", "a277a073998d4e2d")}
+
+
+def _digest(*arrays) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update((a.numpy() if isinstance(a, torch.Tensor) else a).tobytes())
+    return h.hexdigest()[:16]
+
+
+@pytest.mark.parametrize("seed", sorted(UNSHARDED))
+def test_unsharded_draw_is_unchanged(seed):
+    spec = gen.CorpusSpec(n_docs=3000, vocab=512, n_topics=8)
+    c = gen.make_corpus(spec, seed, "cpu", shard=None)
+    q = gen.make_queries(spec, c, 200, seed, salt=2, shard=None)
+    assert (_digest(c.doc_ptr, c.tids, c.ws, c.doc_topic), _digest(q.tids, q.ws, q.lens)) == UNSHARDED[seed]
+    one = gen.make_corpus(spec, seed, "cpu", shard=(0, 1))
+    assert all(torch.equal(a, b) for a, b in zip(one[:4], c[:4]))
+
+
+@pytest.mark.parametrize("world", [2, 3, 4])
+def test_slices_make_the_corpus(world):
+    """Rank r of P draws documents [r ceil(n/P), ...) of the one corpus; the
+    slices concatenate to it, and every rank draws the same queries, from
+    documents of every slice."""
+    spec = gen.CorpusSpec(n_docs=1001, vocab=256, n_topics=8)
+    seed = 2**31 + 5
+    whole = gen.make_corpus(spec, seed, "cpu")
+    parts = [gen.make_corpus(spec, seed, "cpu", shard=(r, world)) for r in range(world)]
+    sizes = [p.doc_ptr.numel() - 1 for p in parts]
+    assert sizes == [hi - lo for lo, hi in (gen.shard_range(spec.n_docs, (r, world)) for r in range(world))]
+    assert sum(sizes) == spec.n_docs
+    offsets = np.cumsum([0] + [p.tids.numel() for p in parts[:-1]])
+    ptr = torch.cat([torch.zeros(1, dtype=torch.int64)] + [p.doc_ptr[1:] + int(o) for p, o in zip(parts, offsets)])
+    assert torch.equal(ptr, whole.doc_ptr)
+    for field in ("tids", "ws", "doc_topic"):
+        assert torch.equal(torch.cat([getattr(p, field) for p in parts]), getattr(whole, field))
+    want = gen.make_queries(spec, whole, 64, seed)
+    for r, part in enumerate(parts):
+        got = gen.make_queries(spec, part, 64, seed, shard=(r, world))
+        assert np.array_equal(got.tids, want.tids) and np.array_equal(got.ws, want.ws)

@@ -121,3 +121,80 @@ def test_shuffled_order_fails_recall_alone(tiny_bench):
     out = run_tiny(tiny_bench, "k1000-bulk", fault=faults.FAULTS["shuffled_order"])
     failed = [n for n, v in out["checks"].items() if v["value"] > v["limit"]]
     assert not out["correct"] and failed == ["recall_shortfall"], out["checks"]
+
+
+@pytest.fixture(scope="module")
+def tiny_sharded(tmp_path_factory):
+    """A tiny copy of the benchmark with a 2-rank cell served through the
+    program's process-group front end."""
+    from portbench.tiny import add_sharded_cell, make_tiny
+
+    tiny = make_tiny(tmp_path_factory.mktemp("portbench2"))
+    return tiny, add_sharded_cell(tiny)
+
+
+def _run_sharded(tiny_sharded, fault=None, seconds: float = 0.3):
+    from portbench import harness
+    from portbench.tiny import TINY_SEED
+
+    (root, bench), cell = tiny_sharded
+    return harness.run(cell, TINY_SEED, seconds, False, root=root, device="cpu", bench_dir=bench, fault=fault,
+                       check_modules=False)
+
+
+def test_sharded_run_is_correct(tiny_sharded):
+    """Two ranks over gloo, each serving its shard through GroupFrontEnd and
+    Follower; the check judges both shards and the responses against the
+    union. The caller's process keeps no process group."""
+    import torch.distributed as dist
+
+    out = _run_sharded(tiny_sharded)
+    assert out["correct"], out["checks"]
+    assert out["device"]["count"] == 2 and out["failed"] == 0 and out["attempted"] > 0
+    assert list(out)[-1] == "checks" and set(out["metrics"]) == {"qps", "setup_s"}
+    assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("fault", ["alter_answer", "stale_shard", "no_exchange"])
+def test_sharded_fault_is_caught(tiny_sharded, fault, monkeypatch):
+    """An answer altered on rank 0, rank 1's shard left stale, and the
+    exchange between the ranks left out each turn ``correct`` false."""
+    from repro_torch.distributed import sharded
+
+    monkeypatch.setattr(sharded, "all_gather_cat", sharded.all_gather_cat)  # no_exchange replaces it here
+    out = _run_sharded(tiny_sharded, fault=fault)
+    failed = [n for n, v in out["checks"].items() if v["value"] > v["limit"]]
+    assert not out["correct"] and failed, out["checks"]
+    if fault == "stale_shard":
+        assert out["checks"]["index_mismatches"]["value"] > 0
+
+
+def _alive(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().split(") ")[-1][:1] != "Z"
+    except OSError:
+        return False
+
+
+def test_killed_rank_ends_the_run(tiny_sharded):
+    """Rank 1 killed inside a 20 s window: the run, as the command runs it,
+    exits non-zero long before the window's end, prints no result, and
+    leaves no rank behind."""
+    import re
+    import time
+
+    from portbench.tiny import TINY_SEED
+
+    (root, bench), cell = tiny_sharded
+    code = ("import sys; from pathlib import Path; from portbench import harness; "
+            f"harness.run({cell!r}, {TINY_SEED}, 20.0, False, root=Path({str(root)!r}), device='cpu', "
+            f"bench_dir=Path({str(bench)!r}), fault='kill_rank', hard_exit=True); print('result')")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT)]))
+    t0 = time.monotonic()
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    took = time.monotonic() - t0
+    assert out.returncode != 0 and out.stdout.strip() == "", (out.returncode, out.stdout, out.stderr[-2000:])
+    assert "rank 1 exited" in out.stderr and took < 60, (took, out.stderr[-2000:])
+    pids = [int(p) for p in re.findall(r"pids \[([\d, ]+)\]", out.stderr)[0].split(",")]
+    assert not [p for p in pids if _alive(p)]

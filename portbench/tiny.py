@@ -47,3 +47,30 @@ def run_tiny(tiny, cell: str, seconds: float = 0.3, fault=None, seed: int = TINY
     root, bench = tiny
     return harness.run(cell, seed, seconds, False, root=root, device="cpu", bench_dir=bench, fault=fault,
                        check_modules=False)
+
+
+SHARDED_CELL = "k1000-bulk-2rank"
+
+
+def add_sharded_cell(tiny) -> str:
+    """A cell of 2 ranks in the tiny copy: its configuration the tiny
+    k1000 one served as a shard set through the program's process-group
+    front end (build ``group_cut``), checked shard by shard (reference
+    ``lsp_shards``). Returns the cell's name."""
+    root, bench = tiny
+    cfg = json.loads((bench / "configs" / "msmarco-splade-k1000.json").read_text())
+    cfg.update(name="tiny-shards", build="group_cut", reference="lsp_shards")
+    (bench / "configs" / "tiny-shards.json").write_text(json.dumps(cfg))
+    cell = json.loads((bench / "workloads" / "k1000-bulk.json").read_text())
+    cell.update(name=SHARDED_CELL, config="tiny-shards", chips=2)
+    (bench / "workloads" / f"{SHARDED_CELL}.json").write_text(json.dumps(cell))
+    spec = json.loads((root / "BENCHMARK.json").read_text())
+    spec["configs"].append({"name": "tiny-shards", "source": cfg["source"], "file": "portbench/configs/tiny-shards.json",
+                            "reduced": cfg["reduced"], "why": "a shard set served by the process group"})
+    spec["workloads"].append({"name": SHARDED_CELL, "config": "tiny-shards", "traffic": "bulk-64", "chips": 2,
+                              "why": "the process-group path"})
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        if "workloads" in m:
+            m["workloads"].append(SHARDED_CELL)
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+    return SHARDED_CELL

@@ -24,10 +24,11 @@ def prepare(ctx) -> None:
     batch = mix["batch"]
     n = batch * max(1, math.ceil(mix["max_qps"] * ctx.seconds / batch))
     t0 = time.perf_counter()
-    ctx.pool = gen.make_queries(ctx.spec, ctx.corpus, n, ctx.seed, salt=2)
+    ctx.pool = gen.make_queries(ctx.spec, ctx.corpus, n, ctx.seed, salt=2, shard=ctx.shard)
     reqs = [ctx.pool.get(i) for i in range(n)]
     ctx.batches = [reqs[lo : lo + batch] for lo in range(0, n, batch)]  # the calls' arguments, made before the window
-    warm = gen.make_queries(ctx.spec, ctx.corpus, mix["batch"] * mix["warmup_calls"], ctx.seed, salt=3)
+    warm = gen.make_queries(ctx.spec, ctx.corpus, mix["batch"] * mix["warmup_calls"], ctx.seed, salt=3,
+                            shard=ctx.shard)
     t1 = time.perf_counter()
     for c in range(mix["warmup_calls"]):
         ctx.retr.search_batch([warm.get(i) for i in range(c * mix["batch"], (c + 1) * mix["batch"])])
